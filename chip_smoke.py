@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) once on one GPU.
 
-    python3 chip_smoke.py            # all phases, RMAT scale 20
+    python3 chip_smoke.py            # all phases, RMAT scale 20, 64 layers
+    python3 chip_smoke.py --scale 12 # a quicker rehearsal (smaller graph)
 
 Phases, in order; any failure exits non-zero before the result line:
 
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
-   ELL kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
-2. hold the kernel against its plain PyTorch version on the card over a
+   kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc``, one
+   compiler per source, all at once;
+2. hold the ELL kernel against its plain PyTorch version on the card over a
    sweep of shapes, semirings, dtypes and query widths;
 3. build an RMAT graph (Graph500 parameters, scale 20, edge factor 16,
    self-loops removed, symmetrized) as an ELL graph on the card, serve 32
@@ -15,17 +17,37 @@ Phases, in order; any failure exits non-zero before the result line:
    ``drain()`` and through a ``ServerDriver``), hold them against the plain
    torch ``Plan("ell")`` path, run single-query BFS, SSSP and PageRank
    through the kernel, and check that the kernel's launch counter rose;
-4. time the kernel, its plain version and ``torch.sparse.mm`` with CUDA
-   events at the phase-3 shapes and print the ``{"kernels": [...]}`` line;
+4. time the ELL kernel, its plain version and ``torch.sparse.mm`` with CUDA
+   events at the phase-3 shapes;
+5. free the graph, hold the selective-scan kernel against its plain version
+   over the shapes of the reference's kernel test and edge cases (ragged S
+   and C, N = 5 and 16, dt = 0, dt large enough that exp(dt·a) is 0, NaN in
+   u) and at the Falcon-Mamba-7B prefill shape [4, 2048, 8192, 16], and time
+   it there;
+6. serve Falcon-Mamba-7B (``ssm_impl="fused"``, bf16 compute, random
+   float32 weights from a seeded generator on the card): 4 prompts of 2,048
+   tokens through ``make_prefill`` (one kernel launch per layer), the same
+   prompts cut to 32 tokens through the decode step and ``generate`` (16
+   greedy tokens), the device-busy share of one prefill and one decode
+   step (``torch.profiler``), prefill against decode logits (in bf16 and
+   again in float32 compute), and ``forward`` fused against ``assoc`` on 2
+   layers;
 
-and last, ``{"ok": true, "device": {...}}``.  Detail that is too long for
-the end of the output goes to ``chiprun_out/chip_smoke.json``.
+then the ``{"kernels": [...]}`` line, the card line and last ``{"ok": true,
+"device": {...}}``.  Detail that is too long for the end of the output goes
+to ``chiprun_out/chip_smoke.json``.
 
-Tolerances: min/max reductions and int32 results must match bitwise (the
-same values are reduced, in any order).  Float add reductions match with
-``rtol`` 1e-5 in float32 and 1e-2 in float16, ``atol`` = rtol times the
+Tolerances: ELL min/max reductions and int32 results must match bitwise
+(the same values are reduced, in any order).  Float add reductions match
+with ``rtol`` 1e-5 in float32 and 1e-2 in float16, ``atol`` = rtol times the
 largest magnitude of the plain result, because the kernel sums in another
-order than the plain version.  PageRank after 20 sweeps: rtol 1e-4.
+order than the plain version.  PageRank after 20 sweeps: rtol 1e-4.  The
+selective scan: rtol 2e-4 / atol 2e-5 in the sweep (the reference's own);
+at full width atol 2e-5 times max|y_plain|, because the two sum the N
+products in another order.  Logits: prefill against decode within
+``PREFILL_DECODE_TOL`` times max|logit| in bf16 and
+``PREFILL_DECODE_F32_TOL`` in float32 compute, fused against assoc within
+``FUSED_ASSOC_TOL`` times max|logit| (see their comments).
 """
 
 from __future__ import annotations
@@ -40,6 +62,25 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores, data sheet
+# Base-2 exponentials per clock per SM on compute capability 9.0 (the CUDA
+# C++ Programming Guide's table of arithmetic instruction throughput).
+SFU_PER_CLOCK_PER_SM = 16
+H100_SMS = 132
+# bf16 logits of 64 layers: prefill (fused scan, [4, 32]-row matmuls) and
+# decode ([4, 1]-row matmuls) round to bf16 after other sums in every layer,
+# and the differences compound with depth (one bf16 step is 2^-8 = 0.39% of
+# a value; on an H100, 1.0% of max|logit| at 4 layers and 6.2% at 64).
+# The limit sits just above the 64-layer reading; the float32 check below is
+# the one that binds the arithmetic.
+PREFILL_DECODE_TOL = 0.08
+# The same comparison in float32 compute, where no bf16 rounding differs:
+# the two paths are the same arithmetic up to float32 rounding (1.1e-5 of
+# max|logit| on an H100 at 64 layers).
+PREFILL_DECODE_F32_TOL = 1e-3
+# 2 layers, where only the scan differs (f32 either way, other orders):
+# the differences appear only where a bf16 rounding of y flips.
+FUSED_ASSOC_TOL = 0.02
 
 
 def log(msg: str) -> None:
@@ -52,6 +93,13 @@ def card_line() -> str:
        "--format=csv,noheader"],
       capture_output=True, text=True, check=True, timeout=60)
   return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+  out = subprocess.run(
+      ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+      capture_output=True, text=True, check=True, timeout=60)
+  return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -68,6 +116,55 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
   end.record()
   end.synchronize()
   return start.elapsed_time(end) / iters
+
+
+def device_busy(fn, top: int = 6) -> dict:
+  """Run ``fn`` once under ``torch.profiler`` (device activity only, so the
+  host pays no tracing cost per operation): the union of the card's kernel
+  intervals against the CUDA-event time of the call, and the kernels that
+  took the most device time.  ``busy_ms`` is None where the profiler
+  recorded no device event."""
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+  wall_ms = start.elapsed_time(end)
+  kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+  spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+  busy_us, cur = 0.0, None
+  for lo, hi in spans:
+    if cur is None or lo > cur[1]:
+      if cur is not None:
+        busy_us += cur[1] - cur[0]
+      cur = [lo, hi]
+    else:
+      cur[1] = max(cur[1], hi)
+  if cur is not None:
+    busy_us += cur[1] - cur[0]
+  by_name: dict = {}
+  for e in kernels:
+    by_name[e.name[:90]] = (by_name.get(e.name[:90], 0.0)
+                            + e.time_range.elapsed_us() / 1e3)
+  busy_ms = busy_us / 1e3 if kernels else None
+  return {"wall_ms": wall_ms, "kernels": len(kernels), "busy_ms": busy_ms,
+          "busy_share": None if busy_ms is None else busy_ms / wall_ms,
+          "top_kernels_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+
+
+def busy_line(what: str, busy: dict) -> str:
+  if busy["busy_ms"] is None:
+    return f"{what}: device busy share not measured (no device events)"
+  tops = "; ".join(f"{ms:.2f} ms {name}" for name, ms in busy["top_kernels_ms"])
+  return (f"{what}: {busy['kernels']} kernels, device busy "
+          f"{busy['busy_ms']:.2f} of {busy['wall_ms']:.2f} ms "
+          f"({busy['busy_share']:.3f}); most device time: {tops}")
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +559,292 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict):
   return entries, array_bounds, split
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the selective-scan kernel against plain, and its time
+# ---------------------------------------------------------------------------
+
+FALCON_SCAN = (4, 2048, 8192, 16)  # B, S, d_inner, N of the phase-6 prefill
+
+
+def scan_inputs(gen, b, s, c, n):
+  """u, dt, a, bmat, cmat on the card (the reference kernel test's draws)."""
+  import torch
+  dev = "cuda"
+  u = torch.randn((b, s, c), generator=gen, device=dev)
+  dt = torch.nn.functional.softplus(
+      torch.randn((b, s, c), generator=gen, device=dev)) * 0.1
+  a = -torch.exp(torch.randn((c, n), generator=gen, device=dev))
+  bm = torch.randn((b, s, n), generator=gen, device=dev)
+  cm = torch.randn((b, s, n), generator=gen, device=dev)
+  return u, dt, a, bm, cm
+
+
+def compare_scan(y, yr, atol: float, what: str) -> float:
+  """Raise unless kernel y agrees with plain yr (NaN where it has NaN);
+  returns the max absolute difference over finite entries."""
+  import torch
+  if not torch.equal(torch.isnan(y), torch.isnan(yr)):
+    raise AssertionError(f"{what}: NaN entries differ")
+  torch.testing.assert_close(y, yr, rtol=2e-4, atol=atol, equal_nan=True,
+                             msg=lambda m: f"{what}: {m}")
+  fin = torch.isfinite(yr)
+  return float((y[fin] - yr[fin]).abs().max()) if fin.any() else 0.0
+
+
+def scan_bound(b, s, c, n, sm_clock_hz: float) -> dict:
+  """The least time for one launch, the larger of two floors.  Bytes: u, dt
+  read once, y written once, a, bmat, cmat read once, at the data-sheet
+  rate.  Operations: the float32 arithmetic (dt·u once per (b,s,c); per
+  (b,s,c,n) dt·a, exp, dtu·B, the h update's multiply-add and y's = 7) at
+  the data-sheet rate, and the exponentials at the SFU rate and the card's
+  max SM clock; the two units run side by side, so the slower one sets the
+  operations' floor."""
+  nbytes = 4 * (3 * b * s * c + c * n + 2 * b * s * n)
+  ops = b * s * c * (1 + 7 * n)
+  bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+  f32_ms = ops / H100_F32_OPS_PER_S * 1e3
+  sfu_ms = b * s * c * n / (H100_SMS * SFU_PER_CLOCK_PER_SM * sm_clock_hz) * 1e3
+  ops_ms = max(f32_ms, sfu_ms)
+  return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+          "f32_ops_ms": f32_ms, "sfu_exp_ms": sfu_ms, "ops_ms": ops_ms,
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_scan(ss_mod, ref_fn) -> dict:
+  import torch
+  gen = torch.Generator(device="cuda").manual_seed(11)
+  cases = []  # (shape, (seq_chunk, c_tile), kind)
+  for shape in [(1, 16, 8, 4), (2, 32, 16, 8), (2, 64, 32, 16)]:
+    for sc, ct in [(8, 8), (16, 16)]:
+      cases.append((shape, (sc, ct), "random"))
+  cases += [((2, 100, 64, 16), (100, 64), "S=100, not a multiple of the "
+             "32-step run"),
+            ((1, 64, 200, 16), (64, 200), "C=200, not a multiple of the "
+             "128-channel tile"),
+            ((2, 48, 160, 5), (16, 32), "N=5, below the compiled width 8"),
+            ((2, 64, 128, 16), (64, 128), "dt=0"),
+            ((2, 64, 128, 16), (64, 128), "large dt"),
+            ((2, 64, 128, 16), (64, 128), "NaN in u")]
+  max_err = 0.0
+  for shape, (sc, ct), kind in cases:
+    u, dt, a, bm, cm = scan_inputs(gen, *shape)
+    if kind == "dt=0":
+      dt.zero_()
+    elif kind == "large dt":
+      dt = 1e4 * (1.0 + torch.rand(dt.shape, generator=gen, device="cuda"))
+      if float(dt.min() * a.abs().min()) < 104.0:
+        raise AssertionError("large-dt case: exp(dt·a) does not underflow")
+    elif kind == "NaN in u":
+      u[0, 10, 5] = float("nan")
+      u[1, 0, 77] = float("nan")
+    y = ss_mod.selective_scan(u, dt, a, bm, cm, seq_chunk=sc, c_tile=ct)
+    yr = ref_fn(u, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    what = f"{shape} chunks {(sc, ct)} {kind}"
+    if kind == "dt=0" and y.any():
+      raise AssertionError(f"{what}: state left 0")
+    if kind == "NaN in u" and not (torch.isnan(y[0, 10:, 5]).all()
+                                   and torch.isnan(y[1, :, 77]).all()):
+      raise AssertionError(f"{what}: NaN did not reach the output")
+    max_err = max(max_err, compare_scan(y, yr, 2e-5, what))
+  log(f"phase 5: scan kernel == plain on {len(cases)} cases "
+      f"(max abs err {max_err:.3g})")
+
+  b, s, c, n = FALCON_SCAN
+  args = scan_inputs(gen, b, s, c, n)
+  y = ss_mod.selective_scan(*args)
+  yr = ref_fn(*args)
+  torch.cuda.synchronize()
+  scale = float(yr.abs().max())
+  err = compare_scan(y, yr, 2e-5 * scale, f"full width {FALCON_SCAN}")
+  del y, yr
+  kernel_ms = cuda_ms(lambda: ss_mod.selective_scan(*args))
+  plain_ms = cuda_ms(lambda: ref_fn(*args), iters=2, warmup=1)
+  bound = scan_bound(b, s, c, n, max_sm_clock_hz())
+  log(f"phase 5: full width {FALCON_SCAN}: max abs err {err:.3g} "
+      f"(max|y| {scale:.3g}); kernel {kernel_ms:.4f} ms, plain "
+      f"{plain_ms:.2f} ms, bound {bound['bound_ms']:.4f} ms "
+      f"({bound['bound_by']}; bytes {bound['bytes_ms']:.4f}, f32 ops "
+      f"{bound['f32_ops_ms']:.4f}, exp at the SFU rate "
+      f"{bound['sfu_exp_ms']:.4f})")
+  return {"sweep_cases": len(cases), "sweep_max_abs_err": max_err,
+          "full_width_max_abs_err": err, "full_width_max_abs_y": scale,
+          "ms": kernel_ms, "plain_ms": plain_ms, "bound": bound}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the LM serving slice at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_lm(ss_mod, seed: int = 0) -> dict:
+  import torch
+  from repro_torch import configs
+  from repro_torch._tree import tree_leaves, tree_map
+  from repro_torch.models.common import init_params, num_params
+  from repro_torch.models.transformer import build_model
+  from repro_torch.serve import generate, make_decode_step, make_prefill
+
+  cfg = configs.get_config("falcon_mamba_7b").scaled(ssm_impl="fused")
+  model = build_model(cfg)
+  vocab = cfg.vocab_size
+  torch.cuda.reset_peak_memory_stats()
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  t0 = time.perf_counter()
+  params = init_params(model.defs(), gen)
+  torch.cuda.synchronize()
+  t_init = time.perf_counter() - t0
+  n_params = num_params(model.defs())
+  log(f"phase 6: {cfg.name} ({cfg.num_layers} layers, {n_params:,} params, "
+      f"{n_params * 4 / 2**30:.2f} GiB f32) initialized in {t_init:.3f} s")
+
+  b, s = 4, 2048
+  tokens = torch.randint(0, vocab, (b, s), generator=gen, device="cuda",
+                         dtype=torch.int32)
+  prefill = make_prefill(model)
+  ss_mod.launches = 0
+  t0 = time.perf_counter()
+  logits = prefill(params, {"tokens": tokens})
+  torch.cuda.synchronize()
+  t_first = time.perf_counter() - t0
+  launches = ss_mod.launches
+  if launches != cfg.num_layers:
+    raise AssertionError(f"prefill launched the scan kernel {launches} "
+                         f"times, not once per layer ({cfg.num_layers})")
+  if logits.shape != (b, s, cfg.padded_vocab(1)):
+    raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
+  if not torch.isfinite(logits).all():
+    raise AssertionError("prefill logits are not finite")
+  del logits
+  prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), iters=3,
+                       warmup=1)
+  log(f"phase 6: prefill {b}x{s} tokens: {launches} scan launches, finite "
+      f"logits; first call {t_first:.3f} s, then {prefill_ms:.2f} ms "
+      f"(CUDA events)")
+
+  # The same prompts cut to 32 tokens: prefill (fused scan) against the
+  # decode path (recurrence, no kernel), then generate's greedy tokens.
+  p, new = 32, 16
+  short = tokens[:, :p].contiguous()
+  ss_mod.launches = 0
+  pre_last = prefill(params, {"tokens": short})[:, -1, :vocab].float()
+  if ss_mod.launches != cfg.num_layers:
+    raise AssertionError("short prefill did not launch once per layer")
+  step = make_decode_step(model)
+  cache = model.init_cache(b, p + new)
+  ss_mod.launches = 0
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  timed_from = 4
+  for i in range(p):
+    if i == timed_from:
+      start.record()
+    logits, cache = step(params, short[:, i:i + 1], cache, i)
+  end.record()
+  end.synchronize()
+  decode_ms = start.elapsed_time(end) / (p - timed_from)
+  dec_last = logits[:, -1, :vocab].float()
+  out = generate(model, params, short, max_new=new)
+  torch.cuda.synchronize()
+  if ss_mod.launches != 0:
+    raise AssertionError("the decode path launched the scan kernel")
+  busy_prefill = device_busy(lambda: prefill(params, {"tokens": tokens}))
+  log(busy_line(f"phase 6: prefill {b}x{s}", busy_prefill))
+  busy_decode = device_busy(lambda: step(params, short[:, :1], cache, p))
+  log(busy_line(f"phase 6: decode step B={b}", busy_decode))
+  if out.shape != (b, p + new) or not torch.equal(out[:, :p], short):
+    raise AssertionError(f"generate returned {tuple(out.shape)}")
+  if not ((out >= 0) & (out < vocab)).all():
+    raise AssertionError("generated token out of range")
+  if not torch.isfinite(dec_last).all():
+    raise AssertionError("decode logits are not finite")
+  scale = float(pre_last.abs().max())
+  err = float((pre_last - dec_last).abs().max())
+  log(f"phase 6: prefill vs decode logits after {p} tokens: max abs err "
+      f"{err:.4g}, max|logit| {scale:.4g} ({err / scale:.4g} of it; "
+      f"tolerance {PREFILL_DECODE_TOL})")
+  if err > PREFILL_DECODE_TOL * scale:
+    raise AssertionError("prefill and decode logits disagree")
+  top2 = torch.topk(pre_last, 2, dim=-1).values
+  sure = (top2[:, 0] - top2[:, 1]) > 2 * err  # no error can flip the argmax
+  agree = pre_last.argmax(-1) == out[:, p]
+  if not agree[sure].all():
+    raise AssertionError("prefill argmax != first generated token where the "
+                         "top-2 margin exceeds twice the error")
+  log(f"phase 6: decode step {decode_ms:.2f} ms at B={b}; generate: "
+      f"{new} tokens; prefill argmax == first generated token for "
+      f"{int(agree.sum())}/{b} prompts ({int(sure.sum())} with a top-2 margin "
+      f"above twice the error)")
+
+  # Prefill against decode again in float32 compute (the same weights).
+  m32 = build_model(cfg.scaled(dtype="float32"))
+  ss_mod.launches = 0
+  pre32 = make_prefill(m32)(params, {"tokens": short})[:, -1, :vocab]
+  if ss_mod.launches != cfg.num_layers:
+    raise AssertionError("f32 prefill did not launch once per layer")
+  step32 = make_decode_step(m32)
+  cache = m32.init_cache(b, p)
+  for i in range(p):
+    logits, cache = step32(params, short[:, i:i + 1], cache, i)
+  dec32 = logits[:, -1, :vocab]
+  del cache, logits
+  scale32 = float(pre32.abs().max())
+  err32 = float((pre32 - dec32).abs().max())
+  top2 = torch.topk(pre32, 2, dim=-1).values
+  sure32 = (top2[:, 0] - top2[:, 1]) > 2 * err32
+  agree32 = pre32.argmax(-1) == dec32.argmax(-1)
+  log(f"phase 6: f32 compute, prefill vs decode logits after {p} tokens: "
+      f"max abs err {err32:.4g}, max|logit| {scale32:.4g} "
+      f"({err32 / scale32:.4g} of it; tolerance {PREFILL_DECODE_F32_TOL}); "
+      f"argmax equal for {int(agree32.sum())}/{b} ({int(sure32.sum())} "
+      f"with a top-2 margin above twice the error)")
+  if err32 > PREFILL_DECODE_F32_TOL * scale32 or not agree32[sure32].all():
+    raise AssertionError("f32 prefill and decode logits disagree")
+
+  # Casting every matrix to bf16, as each forward and decode step does.
+  mats = [params["lm_head"], *tree_leaves(params["layers"])]
+
+  def cast_all():
+    for t in mats:
+      t.to(cfg.compute_dtype)  # each copy is freed at once, as in a layer
+
+  cast_ms = cuda_ms(cast_all, iters=3, warmup=1)
+
+  # forward, fused against assoc: 2 layers, B=1, S=512.
+  cfg2 = cfg.scaled(num_layers=2)
+  two = {**params, "layers": tree_map(lambda t: t[:2], params["layers"])}
+  batch = {"tokens": tokens[:1, :512]}
+  with torch.inference_mode():
+    lf = build_model(cfg2).forward(two, batch)[0].float()
+    la = build_model(cfg2.scaled(ssm_impl="assoc")).forward(two, batch)[0]
+  la = la.float()
+  fa_scale = float(la.abs().max())
+  fa_err = float((lf - la).abs().max())
+  log(f"phase 6: forward fused vs assoc (2 layers, 1x512): max abs err "
+      f"{fa_err:.4g}, max|logit| {fa_scale:.4g} ({fa_err / fa_scale:.4g} of "
+      f"it; tolerance {FUSED_ASSOC_TOL})")
+  if not (torch.isfinite(lf).all() and fa_err <= FUSED_ASSOC_TOL * fa_scale):
+    raise AssertionError("fused and assoc forward disagree")
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  log(f"phase 6: weight cast f32->bf16 {cast_ms:.2f} ms per forward or "
+      f"step; peak device memory {peak_gib:.2f} GiB")
+  return {"config": cfg.name, "num_layers": cfg.num_layers,
+          "params": n_params, "init_s": t_init, "prefill_batch": [b, s],
+          "prefill_first_s": t_first, "prefill_ms": prefill_ms,
+          "scan_launches_per_prefill": launches,
+          "decode_step_ms": decode_ms, "decode_batch": b,
+          "prefill_profile": busy_prefill, "decode_profile": busy_decode,
+          "weight_cast_ms": cast_ms,
+          "prefill_decode_max_abs_err": err, "prefill_max_abs_logit": scale,
+          "argmax_agree": int(agree.sum()), "argmax_sure": int(sure.sum()),
+          "f32_prefill_decode_max_abs_err": err32,
+          "f32_prefill_max_abs_logit": scale32,
+          "fused_assoc_max_abs_err": fa_err,
+          "fused_assoc_max_abs_logit": fa_scale,
+          "peak_device_gib": peak_gib}
+
+
 def main(argv=None) -> int:
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   ap.add_argument("--scale", type=int, default=20,
@@ -478,8 +861,11 @@ def main(argv=None) -> int:
           "(src/repro_torch is missing)", file=sys.stderr)
     return 2
   sys.path.insert(0, str(ROOT / "src"))
+  from repro_torch.kernels import _build
   from repro_torch.kernels import ell_spmv as ell_mod
   from repro_torch.kernels import ref as ref_mod
+  from repro_torch.kernels import selective_scan as ss_mod
+  from repro_torch.kernels.ref_selective_scan import selective_scan_ref
 
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -487,23 +873,46 @@ def main(argv=None) -> int:
   log(card)
   log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
       f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-  ell_mod.build()
-  info = ell_mod.build_info
-  log(f"phase 1: built {info['path']} in {info['seconds']:.2f} s")
-  log("\n".join(line for line in info["log"].splitlines()
-                if "registers" in line or "error" in line.lower())[:4000])
+  t0 = time.perf_counter()
+  _build.load_all([ell_mod.LIBRARY, ss_mod.LIBRARY])
+  builds = {}
+  for lib in (ell_mod.LIBRARY, ss_mod.LIBRARY):
+    info = lib.info
+    builds[lib.source.name] = {k: info[k] for k in ("seconds", "log")}
+    log(f"phase 1: built {info['path']} in {info['seconds']:.2f} s")
+    log("\n".join(line for line in info["log"].splitlines()
+                  if "registers" in line or "error" in line.lower())[:4000])
+  log(f"phase 1: both builds took {time.perf_counter() - t0:.2f} s")
 
   sweep = phase_kernel_sweep(ell_mod, ref_mod)
   slice_stats, g = phase_slice(args.scale, 32, ell_mod)
   entries, array_bounds, split = phase_timing(g, ell_mod, ref_mod,
                                               slice_stats["launches"])
+  del g  # the graph phases' tensors, before the 27 GiB of phase 6
+  torch.cuda.empty_cache()
+  scan = phase_scan(ss_mod, selective_scan_ref)
+  lm = phase_lm(ss_mod)
+  lm["scan_share_of_prefill"] = (lm["scan_launches_per_prefill"] * scan["ms"]
+                                 / lm["prefill_ms"])
+  log(f"phase 6: {lm['scan_launches_per_prefill']} scan launches x "
+      f"{scan['ms']:.4f} ms = {lm['scan_share_of_prefill']:.4f} of the "
+      f"{lm['prefill_ms']:.2f} ms prefill")
+  b, s, _, _ = FALCON_SCAN
+  entries.append({
+      "name": f"selective_scan[falcon-mamba-7b,f32,B={b},S={s}]",
+      "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+      "replaces": "src/repro/kernels/selective_scan.py:78",
+      "launches": lm["scan_launches_per_prefill"],
+      "max_abs_err": scan["full_width_max_abs_err"], "ms": scan["ms"],
+      "plain_ms": scan["plain_ms"], "bound_ms": scan["bound"]["bound_ms"],
+      "bound_by": scan["bound"]["bound_by"], "library_ms": None})
 
   OUT_DIR.mkdir(exist_ok=True)
   (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
-      "card": card, "build": {k: info[k] for k in ("seconds", "log")},
-      "sweep": sweep, "slice": slice_stats, "kernels": entries,
-      "ell_array_bound_ms": array_bounds, "superstep_split": split},
-      indent=1))
+      "card": card, "build": builds, "sweep": sweep, "slice": slice_stats,
+      "kernels": entries, "ell_array_bound_ms": array_bounds,
+      "superstep_split": split, "scan": scan, "lm": lm}, indent=1))
   log(card)
   print(json.dumps({"kernels": entries}), flush=True)
   print(json.dumps({"ok": True, "device": {

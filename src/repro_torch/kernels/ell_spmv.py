@@ -9,8 +9,7 @@ gathers) and how its design answers that.
 
 The kernel is built with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at its first launch, into ``build/`` at the repository
-root (the file name carries a hash of the source, so an edited source
-rebuilds), and loaded with ``ctypes``.
+root, and loaded with ``ctypes`` (:mod:`repro_torch.kernels._build`).
 
 :func:`ell_spmv` runs the kernel on CUDA tensors and the plain version
 (:func:`repro_torch.kernels.ref.ell_spmv_ref`) on CPU tensors; on a CUDA
@@ -20,24 +19,13 @@ tensor it launches or raises.  :data:`launches` counts the launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import threading
-import time
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.vertex_program import PROCESS_FORMS, PROCESS_OPS
+from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.ref import ell_spmv_ref
-
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "ell_spmv.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 EDGE_OPS = ("msg_plus_edge", "msg_times_edge")  # the forms that read vals
 # Codes passed to the C function; the orders match the enums in the source.
@@ -85,58 +73,16 @@ class LaunchCounter:
 
 launches = LaunchCounter()
 
-_lib = None
-_lib_lock = threading.Lock()
-build_info: dict = {}
+
+def _bind(lib: ctypes.CDLL) -> None:
+  fn = lib.graphmat_ell_spmv
+  fn.argtypes = ([ctypes.c_void_p] * 7
+                 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p])
+  fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-  home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-  path = os.path.join(home, "bin", "nvcc")
-  if os.path.exists(path):
-    return path
-  found = shutil.which("nvcc")
-  if found is None:
-    raise RuntimeError("nvcc not found: the CUDA ELL kernel cannot be built")
-  return found
-
-
-def build() -> ctypes.CDLL:
-  """Compile (once per source hash) and load the kernel library.
-
-  Fills :data:`build_info` with the library path, the seconds the build
-  took (0.0 when an earlier build was found) and the compiler's output.
-  """
-  global _lib
-  with _lib_lock:
-    if _lib is not None:
-      return _lib
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"libgraphmat_ell_spmv_{digest}.so"
-    seconds, log = 0.0, ""
-    if not out.exists():
-      BUILD_DIR.mkdir(parents=True, exist_ok=True)
-      tmp = out.with_suffix(f".{os.getpid()}.tmp")
-      t0 = time.perf_counter()
-      proc = subprocess.run(
-          [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-          capture_output=True, text=True, check=False)
-      seconds = time.perf_counter() - t0
-      log = proc.stdout + proc.stderr
-      if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-      os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    fn = lib.graphmat_ell_spmv
-    fn.argtypes = ([ctypes.c_void_p] * 7
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.graphmat_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.graphmat_cuda_error_string.restype = ctypes.c_char_p
-    build_info.update(path=str(out), seconds=seconds, log=log)
-    _lib = lib
-    return lib
+LIBRARY = CudaLibrary("ell_spmv.cu", _bind)
 
 
 def plain_process(process_op: str):
@@ -211,7 +157,7 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
   _check(1 <= tile <= MAX_QUERY_TILE,
          f"block_queries={tile} must be in 1..{MAX_QUERY_TILE}")
 
-  lib = build()
+  lib = LIBRARY.load()
   y = torch.empty((n_pad, q), dtype=msg.dtype, device=dev)
   recv = torch.empty((n_pad,), dtype=torch.int8, device=dev)
   with torch.cuda.device(dev):
@@ -221,10 +167,7 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
         active.data_ptr(), y.data_ptr(), recv.data_ptr(), n_pad, width, q,
         tile, rows, _DTYPE_CODE[msg.dtype], _REDUCE_CODE[reduce_kind],
         _OP_CODE[process_op], stream)
-  if rc != 0:
-    raise RuntimeError(
-        "ell_spmv kernel launch failed: "
-        f"{lib.graphmat_cuda_error_string(rc).decode()} ({rc})")
+  LIBRARY.check(rc, "ell_spmv")
   launches.add(config_key(q, msg.dtype, reduce_kind, process_op))
   return y, recv
 

@@ -41,6 +41,9 @@ def test_port_imports_with_jax_blocked():
       "  sys.modules[m] = None\n"
       "import repro_torch, repro_torch.core, repro_torch.graphs\n"
       "import repro_torch.kernels.ops, repro_torch.algos, repro_torch.service\n"
+      "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
+      "import repro_torch.kernels.selective_scan\n"
+      "repro_torch.configs.get_config('falcon_mamba_7b')\n"
       "assert not any(k.split('.')[0] in ('jax', 'repro') and v is not None\n"
       "               for k, v in sys.modules.items())\n")
   proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -63,3 +66,16 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
   g = TG.build_coo(src, dst, n=2, device="cpu")
   with pytest.raises(RuntimeError, match="CUDA"):
     g.to("cuda")
+
+  from repro_torch import configs
+  from repro_torch.models.common import init_params
+  from repro_torch.models.transformer import build_model
+  model = build_model(configs.get_smoke_config("falcon_mamba_7b"))
+  gen = torch.Generator().manual_seed(0)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    init_params(model.defs(), gen)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    model.init_cache(2, 8)
+  params = init_params(model.defs(), gen, device="cpu")
+  assert params["embed"].device.type == "cpu"
+  assert model.init_cache(2, 8, device="cpu")["h"].device.type == "cpu"
