@@ -10,20 +10,30 @@ Phases, in order; any failure exits non-zero before the result line:
    kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc``, one
    compiler per source, all at once;
 2. hold the ELL kernel against its plain PyTorch version on the card over a
-   sweep of shapes, semirings, dtypes and query widths;
+   sweep of shapes, semirings (the destination-reading form too, with a
+   [n_pad, 1] and a [n_pad, Q] property), dtypes, query widths, masks
+   (random, degree-sorted prefix rows, empty and last-slot-only rows) and
+   frontiers (partial and every source active);
 3. build an RMAT graph (Graph500 parameters, scale 20, edge factor 16,
    self-loops removed, symmetrized) as an ELL graph on the card, serve 32
    BFS queries through ``GraphQueryServer`` with ``Plan("cuda_ell")`` (by
    ``drain()`` and through a ``ServerDriver``), hold them against the plain
-   torch ``Plan("ell")`` path, run single-query BFS, SSSP and PageRank
-   through the kernel, and check that the kernel's launch counter rose;
-4. time the ELL kernel, its plain version and ``torch.sparse.mm`` with CUDA
-   events at the phase-3 shapes;
+   torch ``Plan("ell")`` path, run single-query BFS, SSSP, PageRank and
+   a destination-reading gradient sweep (one lane and eight) through the
+   kernel, and check that the kernel's launch counter rose; then run the
+   BFS, the SSSP and the 32 queries again with the kernel's calls recorded;
+4. time the ELL kernel and its plain version with CUDA events on the
+   recorded calls of BFS and SSSP (their frontiers, superstep by superstep)
+   and with every source active for PageRank (in turns with
+   ``torch.sparse.mm``) and the gradient sweeps, and the kernel at four
+   frontiers (all, 10% and all but one source active);
 5. free the graph, hold the selective-scan kernel against its plain version
-   over the shapes of the reference's kernel test and edge cases (ragged S
-   and C, N = 5 and 16, dt = 0, dt large enough that exp(dt·a) is 0, NaN in
-   u) and at the Falcon-Mamba-7B prefill shape [4, 2048, 8192, 16], and time
-   it there;
+   over the shapes of the reference's kernel test, shapes that run each
+   choice of lanes per channel, and edge cases at the lanes of the prefill
+   shape (ragged S and C, dt = 0, dt large enough that exp(dt·a) is 0, NaN
+   in u, each at N = 4, 8 and 16; N = 5), and at the Falcon-Mamba-7B
+   prefill shape [4, 2048, 8192, 16] and at [1, 2048, 8192, 16]; time it at
+   both;
 6. serve Falcon-Mamba-7B (``ssm_impl="fused"``, bf16 compute, random
    float32 weights from a seeded generator on the card): 4 prompts of 2,048
    tokens through ``make_prefill`` (one kernel launch per layer), the same
@@ -38,10 +48,13 @@ then the ``{"kernels": [...]}`` line, the card line and last ``{"ok": true,
 to ``chiprun_out/chip_smoke.json``.
 
 Tolerances: ELL min/max reductions and int32 results must match bitwise
-(the same values are reduced, in any order).  Float add reductions match
+(the same values are reduced, in any order; float forms round op by op, as
+the plain version does).  Float add reductions match
 with ``rtol`` 1e-5 in float32 and 1e-2 in float16, ``atol`` = rtol times the
 largest magnitude of the plain result, because the kernel sums in another
-order than the plain version.  PageRank after 20 sweeps: rtol 1e-4.  The
+order than the plain version.  PageRank after 20 sweeps: rtol 1e-4; the
+gradient sweeps' change to the property: rtol 1e-5, atol
+``GRADIENT_ATOL``.  The
 selective scan: rtol 2e-4 / atol 2e-5 in the sweep (the reference's own);
 at full width atol 2e-5 times max|y_plain|, because the two sum the N
 products in another order.  Logits: prefill against decode within
@@ -102,20 +115,36 @@ def max_sm_clock_hz() -> float:
   return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-  """Mean milliseconds of ``fn`` over ``iters`` launches, CUDA events."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 1) -> float:
+  """Milliseconds of ``fn`` per call, CUDA events: the mean over ``iters``
+  calls, and with ``repeats`` the median of that many such means."""
+  import statistics
   import torch
   for _ in range(warmup):
     fn()
   torch.cuda.synchronize()
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
-  start.record()
-  for _ in range(iters):
-    fn()
-  end.record()
-  end.synchronize()
-  return start.elapsed_time(end) / iters
+  means = []
+  for _ in range(repeats):
+    start.record()
+    for _ in range(iters):
+      fn()
+    end.record()
+    end.synchronize()
+    means.append(start.elapsed_time(end) / iters)
+  return statistics.median(means)
+
+
+def paired_ms(fn_a, fn_b, iters: int = 20, repeats: int = 5):
+  """:func:`cuda_ms` of two functions timed in turns (a, b, a, b, ...):
+  the median over ``repeats`` turns of each."""
+  import statistics
+  a, b = [], []
+  for _ in range(repeats):
+    a.append(cuda_ms(fn_a, iters=iters))
+    b.append(cuda_ms(fn_b, iters=iters))
+  return statistics.median(a), statistics.median(b)
 
 
 def device_busy(fn, top: int = 6) -> dict:
@@ -177,7 +206,11 @@ SEMIRINGS = {  # name -> (process_op, reduce)
     "max_times": ("msg_times_edge", "max"),
     "bfs": ("msg_plus_one", "min"),
     "pagerank": ("msg", "add"),
+    # The reference's plus_dst, (e - m * d) * m, and its min.
+    "plus_dst": ("edge_minus_msg_dst_times_msg", "add"),
+    "min_dst": ("edge_minus_msg_dst_times_msg", "min"),
 }
+DST_OP = "edge_minus_msg_dst_times_msg"
 
 
 def compare(y, yr, r, rr, reduce_kind: str, what: str) -> float:
@@ -205,13 +238,35 @@ def compare(y, yr, r, rr, reduce_kind: str, what: str) -> float:
   return err
 
 
-def random_ell(gen, n_pad, width, n_src, q, dtype, p_mask=0.7, p_act=0.8):
+def random_mask(gen, n_pad, width, kind="random", p_mask=0.7):
+  """``random``: independent slots; ``sorted``: prefix rows of random
+  lengths in descending order (several lane segments, no mask read);
+  ``edge_rows``: random rows among empty rows and rows whose only set slot
+  is the last."""
+  import torch
+  dev = "cuda"
+  if kind == "sorted":
+    lens = torch.randint(0, width + 1, (n_pad,), generator=gen, device=dev)
+    lens = lens.sort(descending=True).values
+    return torch.arange(width, device=dev)[None] < lens[:, None]
+  mask = torch.rand((n_pad, width), generator=gen, device=dev) < p_mask
+  if kind == "edge_rows":
+    mask[::3] = False
+    mask[1::3] = False
+    mask[1::3, -1] = True
+  return mask
+
+
+def random_ell(gen, n_pad, width, n_src, q, dtype, p_mask=0.7, p_act=0.8,
+               mask_kind="random"):
+  """A random ELL block on the card; ``p_act`` > 1 makes every source
+  active."""
   import torch
   dev = "cuda"
   cols = torch.randint(0, n_src, (n_pad, width), generator=gen,
                        device=dev, dtype=torch.int32)
   vals = (torch.rand((n_pad, width), generator=gen, device=dev) * 1.9 + 0.1)
-  mask = torch.rand((n_pad, width), generator=gen, device=dev) < p_mask
+  mask = random_mask(gen, n_pad, width, mask_kind, p_mask)
   act = torch.rand((n_src,), generator=gen, device=dev) < p_act
   if dtype == torch.int32:
     msg = torch.randint(0, 1000, (n_src, q), generator=gen, device=dev,
@@ -251,26 +306,63 @@ def phase_kernel_sweep(ell_mod, ref_mod) -> dict:
                                   ("plus_times", torch.float32),
                                   ("min_plus", torch.float16))]
   cases += nan_cases
+  # Every source active: the kernel reads no active flag.
+  for q in (1, 8):
+    cases += [((600, 152, 900, q), "pagerank", torch.float32,
+               {"mask": "sorted", "all_active": True}),
+              ((600, 152, 900, q), "bfs", torch.int32, {"all_active": True}),
+              ((300, 40, 310, q), "plus_dst", torch.float32,
+               {"kd": q, "mask": "edge_rows", "all_active": True})]
+  # The destination-reading form in both grids, with a [n_pad, 1] and a
+  # [n_pad, Q] property; masks with several lane segments, empty rows and
+  # last-slot-only rows; rows of 152 slots, as in the phase-3 graph.
+  for q in (1, 8):
+    for kd in sorted({1, q}):
+      for mask_kind in ("random", "sorted", "edge_rows"):
+        cases += [((600, 152, 900, q), "plus_dst", torch.float32,
+                   {"kd": kd, "mask": mask_kind}),
+                  ((300, 40, 310, q), "min_dst", torch.float32,
+                   {"kd": kd, "mask": mask_kind}),
+                  ((300, 40, 310, q), "plus_dst", torch.float16,
+                   {"kd": kd, "mask": mask_kind}),
+                  ((300, 40, 310, q), "min_dst", torch.int32,
+                   {"kd": kd, "mask": mask_kind})]
+    for mask_kind in ("sorted", "edge_rows"):
+      cases += [((600, 152, 900, q), sem, dtype, {"mask": mask_kind})
+                for sem, dtype in (("bfs", torch.int32),
+                                   ("min_plus", torch.float32),
+                                   ("pagerank", torch.float32))]
   max_err = 0.0
   for shape, sem, dtype, kw in cases:
     n_pad, width, n_src, q = shape
     op, red = SEMIRINGS[sem]
-    cols, vals, mask, msg, act = random_ell(gen, n_pad, width, n_src, q,
-                                            dtype)
     kw = dict(kw)
+    cols, vals, mask, msg, act = random_ell(
+        gen, n_pad, width, n_src, q, dtype,
+        p_act=2.0 if kw.pop("all_active", False) else 0.8,
+        mask_kind=kw.pop("mask", "random"))
     if kw.pop("nan", False):
       msg[torch.rand(msg.shape, generator=gen, device="cuda") < 0.01] = (
           float("nan"))
       vals[torch.rand(vals.shape, generator=gen, device="cuda") < 0.01] = (
           float("nan"))
+    kd = kw.pop("kd", None)
+    if kd is None:
+      dprop = None
+    elif dtype == torch.int32:
+      dprop = torch.randint(-3, 4, (n_pad, kd), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    else:
+      dprop = torch.randn((n_pad, kd), generator=gen, device="cuda").to(dtype)
     y, r = ell_mod.ell_spmv(cols, vals, mask, msg, act, process_op=op,
-                            reduce_kind=red, **kw)
-    dprop = torch.zeros((n_pad, 1), dtype=dtype, device="cuda")
+                            reduce_kind=red, dprop=dprop, **kw)
+    if dprop is None:
+      dprop = torch.zeros((n_pad, 1), dtype=dtype, device="cuda")
     yr, rr = ref_mod.ell_spmv_ref(cols, vals, mask, msg, act, dprop,
                                   process=ell_mod.plain_process(op),
                                   reduce_kind=red)
     torch.cuda.synchronize()
-    what = f"{shape} {sem} {dtype} {kw}"
+    what = f"{shape} {sem} {dtype} {kw} Kd={dprop.shape[1]}"
     if msg.is_floating_point() and torch.isnan(msg).any():
       what += " with NaN"
       if not torch.isnan(yr).any():
@@ -340,10 +432,29 @@ def bfs_numpy(src, dst, n, root):
   return dist
 
 
+GRADIENT_SWEEPS = 3
+# The sweeps' change to p is compared, not p itself: one sweep moves a row
+# of one slot by about 2.5e-6, which a tolerance on p (about 0.25) would not
+# see.  The change's atol is 16 float32 ulps of 0.5, above which few p lie:
+# the two paths may round p + change differently by an ulp or two a sweep.
+GRADIENT_ATOL = 1e-6
+
+
+def gradient_program(lanewise: bool):
+  """Each edge (u -> v) sends ``(w - p_u * p_v) * p_u``, the kernel's
+  destination-reading form; ``p_v += gamma * (sum - lam * p_v)``."""
+  from repro_torch.core.vertex_program import GraphProgram
+  gamma, lam = 1e-5, 0.05
+  return GraphProgram(process_op=DST_OP, reduce_kind="add",
+                      apply=lambda red, old: old + gamma * (red - lam * old),
+                      lanewise=lanewise, name="gradient_sweep")
+
+
 def phase_slice(scale: int, num_queries: int, ell_mod):
   import numpy as np
   import torch
   from repro_torch.algos import bfs, pagerank, sssp
+  from repro_torch.core.engine import run_fixed_iters
   from repro_torch.algos.bfs import UNREACHED
   from repro_torch.core.backends import Plan
   from repro_torch.service import (BfsFamily, GraphQueryServer, QuerySpec,
@@ -440,14 +551,73 @@ def phase_slice(scale: int, num_queries: int, ell_mod):
     raise AssertionError("single-query entry points never launched the kernel")
   log(f"phase 3: single-query BFS ({t_bfs:.3f} s), SSSP, PageRank(20) "
       "through cuda_ell == Plan('ell')")
-  return {"graph": gstats, "queries": num_queries, "serve_s": t_serve,
-          "queries_per_s": num_queries / t_serve, "supersteps": supersteps,
-          "server_setup_s": t_setup, "peak_device_gib": peak_gib,
-          "launches": dict(ell_mod.launches.by_config),
-          "launches_single": ell_mod.launches.single,
-          "launches_multi": ell_mod.launches.multi,
-          "launches_serve": launches_serve,
-          "single_bfs_s": t_bfs}, g
+
+  # A program that reads the destination property: gradient sweeps in the
+  # manner of collaborative filtering, on one lane and on eight.
+  gen = torch.Generator(device="cuda").manual_seed(3)
+  all_active = torch.ones((n,), dtype=torch.bool, device="cuda")
+  for q in (1, 8):
+    shape = (n,) if q == 1 else (n, q)
+    p0 = torch.rand(shape, generator=gen, device="cuda") * 0.5
+    prog = gradient_program(lanewise=q > 1)
+    before = ell_mod.launches.total
+    got = run_fixed_iters(g, prog, p0, all_active, GRADIENT_SWEEPS,
+                          backend=kernel).prop
+    if ell_mod.launches.total - before != GRADIENT_SWEEPS:
+      raise AssertionError("the gradient sweeps did not launch the kernel "
+                           "once a sweep")
+    want = run_fixed_iters(g, prog, p0, all_active, GRADIENT_SWEEPS,
+                           backend=plain).prop
+    if not torch.isfinite(got).all():
+      raise AssertionError("gradient sweeps: non-finite values")
+    torch.testing.assert_close(got - p0, want - p0, rtol=1e-5,
+                               atol=GRADIENT_ATOL)
+    del got, want
+  log(f"phase 3: {GRADIENT_SWEEPS} destination-reading gradient sweeps on 1 "
+      "and 8 lanes through cuda_ell == Plan('ell')")
+  stats = {"graph": gstats, "queries": num_queries, "serve_s": t_serve,
+           "queries_per_s": num_queries / t_serve, "supersteps": supersteps,
+           "server_setup_s": t_setup, "peak_device_gib": peak_gib,
+           "launches": dict(ell_mod.launches.by_config),
+           "launches_single": ell_mod.launches.single,
+           "launches_multi": ell_mod.launches.multi,
+           "launches_serve": launches_serve,
+           "single_bfs_s": t_bfs}
+
+  # The kernel's calls on this run's data, for phase 4 to time: the BFS and
+  # SSSP again, and the 32 queries again through drain().  These launches
+  # come after the main path's counts were read.
+  def serve_again():
+    again = GraphQueryServer(g, BfsFamily(n), num_slots=8, backend=kernel)
+    again.submit_many(specs)
+    again.drain()
+    again.close()
+
+  recorded = {"bfs,Q=1": record_calls(lambda: bfs(g, root, n, backend=kernel)),
+              "sssp,Q=1": record_calls(
+                  lambda: sssp(g, root, n, backend=kernel)),
+              "bfs,Q=8": record_calls(serve_again)}
+  stats["recorded_calls"] = {k: len(v) for k, v in recorded.items()}
+  log(f"phase 3: recorded kernel calls {stats['recorded_calls']}")
+  return stats, g, recorded
+
+
+def record_calls(fn) -> list:
+  """Run ``fn`` with the ``cuda_ell`` backend's kernel calls recorded:
+  ``(msg, active, keyword arguments)`` of each, copied before its launch."""
+  from repro_torch.kernels import ops as kops
+  calls, launch = [], kops.ell_spmv
+
+  def recording(cols, vals, mask, msg, active, **kw):
+    calls.append((msg.clone(), active.clone(), kw))
+    return launch(cols, vals, mask, msg, active, **kw)
+
+  kops.ell_spmv = recording
+  try:
+    fn()
+  finally:
+    kops.ell_spmv = launch
+  return calls
 
 
 # ---------------------------------------------------------------------------
@@ -455,7 +625,7 @@ def phase_slice(scale: int, num_queries: int, ell_mod):
 # ---------------------------------------------------------------------------
 
 
-def phase_timing(g, ell_mod, ref_mod, launches: dict):
+def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
   import torch
   from repro_torch.core.spmv import merge_spill
   from repro_torch.kernels.ops import spmv_ell_cuda
@@ -464,47 +634,89 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict):
   gen = torch.Generator(device="cuda").manual_seed(7)
   n, n_pad, width = g.n, g.n_pad, g.width
   active = torch.ones((n,), dtype=torch.bool, device="cuda")
+  ext = {"row_end": g.row_end, "mask_prefix": g.mask_prefix,
+         "segments": ell_mod.row_segments(g.row_end)}
   valid_slots = int(g.mask.sum())
   entries = []
   array_bounds = {}  # bytes of every ELL slot / HBM rate, for the record
-  configs = [  # name, op, reduce, dtype, Q, replaces
+  # name, op, reduce, dtype, Q, Kd (None: no dprop), replaces, and the
+  # phase-3 calls it is timed on (None: one call with every source active,
+  # as each PageRank and gradient sweep runs).
+  configs = [
       ("ell_spmv[bfs,int32,min,Q=1]", "msg_plus_one", "min", torch.int32, 1,
-       "src/repro/kernels/ell_spmv.py:192"),
+       None, "src/repro/kernels/ell_spmv.py:192", "bfs,Q=1"),
       ("ell_spmv[bfs,int32,min,Q=8]", "msg_plus_one", "min", torch.int32, 8,
-       "src/repro/kernels/ell_spmv.py:165"),
+       None, "src/repro/kernels/ell_spmv.py:165", "bfs,Q=8"),
       ("ell_spmv[sssp,f32,min,Q=1]", "msg_plus_edge", "min", torch.float32,
-       1, "src/repro/kernels/ell_spmv.py:192"),
+       1, None, "src/repro/kernels/ell_spmv.py:192", "sssp,Q=1"),
       ("ell_spmv[pagerank,f32,add,Q=1]", "msg", "add", torch.float32, 1,
-       "src/repro/kernels/ell_spmv.py:192"),
+       None, "src/repro/kernels/ell_spmv.py:192", None),
+      ("ell_spmv[gradient,f32,add,Q=1,dprop]", DST_OP, "add", torch.float32,
+       1, 1, "src/repro/kernels/ell_spmv.py:192", None),
+      ("ell_spmv[gradient,f32,add,Q=8,dprop]", DST_OP, "add", torch.float32,
+       8, 8, "src/repro/kernels/ell_spmv.py:165", None),
   ]
   csr = None
-  for name, op, red, dtype, q, replaces in configs:
-    if dtype == torch.int32:
-      msg = torch.randint(0, 64, (n, q), generator=gen, device="cuda",
-                          dtype=torch.int32)
+  for name, op, red, dtype, q, kd, replaces, key in configs:
+    if key is None:
+      if dtype == torch.int32:
+        msg = torch.randint(0, 64, (n, q), generator=gen, device="cuda",
+                            dtype=torch.int32)
+      else:
+        msg = torch.rand((n, q), generator=gen, device="cuda")
+      calls = [(msg, active)]
     else:
-      msg = torch.rand((n, q), generator=gen, device="cuda")
-    args = (g.cols, g.vals, g.mask, msg, active)
-    y, r = ell_mod.ell_spmv(*args, process_op=op, reduce_kind=red)
-    dprop = torch.zeros((n_pad, 1), dtype=dtype, device="cuda")
-    plain = lambda: ref_mod.ell_spmv_ref(  # noqa: E731
-        *args, dprop, process=ell_mod.plain_process(op), reduce_kind=red)
-    yr, rr = plain()
-    err = compare(y, yr, r, rr, red, name)
+      calls = [(m, a) for m, a, kw in recorded[key]]
+      if not calls or any(
+          (kw["process_op"], kw["reduce_kind"]) != (op, red)
+          or m.shape[1] != q or m.dtype != dtype
+          for m, _, kw in recorded[key]):
+        raise AssertionError(f"{name}: the recorded calls are not its own")
+    dprop = (None if kd is None
+             else torch.rand((n_pad, kd), generator=gen, device="cuda"))
+    dp = (torch.zeros((n_pad, 1), dtype=dtype, device="cuda")
+          if dprop is None else dprop)
+
+    def kernel(m, a):
+      return ell_mod.ell_spmv(g.cols, g.vals, g.mask, m, a, process_op=op,
+                              reduce_kind=red, dprop=dprop, **ext)
+
+    def plain(m, a):
+      return ref_mod.ell_spmv_ref(g.cols, g.vals, g.mask, m, a, dp,
+                                  process=ell_mod.plain_process(op),
+                                  reduce_kind=red)
+
+    def run_all(fn):
+      def run():
+        for m, a in calls:
+          fn(m, a)
+      return run
+
+    err = 0.0
+    for m, a in calls:
+      y, r = kernel(m, a)
+      yr, rr = plain(m, a)
+      err = max(err, compare(y, yr, r, rr, red, name))
     del yr, rr
-    kernel_ms = cuda_ms(lambda: ell_mod.ell_spmv(
-        *args, process_op=op, reduce_kind=red))
-    plain_ms = cuda_ms(plain, iters=3, warmup=1)
-    size = msg.element_size()
-    edge = op in ("msg_plus_edge", "msg_times_edge")
-    # Bytes this run's data needs: every mask byte, cols (and vals for the
-    # edge forms) of the marked slots, msg and active once, y and recv once.
-    need = (n_pad * width + valid_slots * (4 + (4 if edge else 0))
-            + n * q * size + n + n_pad * q * size + n_pad)
+    plain_ms = cuda_ms(run_all(plain), iters=1 if key else 3,
+                       warmup=0) / len(calls)
+    size = calls[0][0].element_size()
+    edge = op in ell_mod.EDGE_OPS
+    # Bytes the work needs, whatever implements it, a launch on average:
+    # cols (and vals for the edge forms) of the valid slots, one row extent
+    # per packed row, the active sources' messages, active and dprop once,
+    # y and recv once.
+    active_msgs = sum(int(a.sum()) for _, a in calls) / len(calls)
+    need = (valid_slots * (4 + (4 if edge else 0)) + 4 * n_pad
+            + active_msgs * q * size + n
+            + (0 if kd is None else n_pad * kd * size)
+            + n_pad * q * size + n_pad)
+    # Every ELL slot's mask, cols (and vals) byte and every message: the
+    # all-slots count, kept for the record.
     full = (n_pad * width * (9 if edge else 5) + n * q * size + n
             + n_pad * q * size + n_pad)
     library_ms = None
-    if red == "add":
+    if op == "msg":
       # torch.sparse.mm on the same matrix as CSR: plus_times over the
       # 0/1 pattern (PageRank's process passes the message through).
       if csr is None:
@@ -522,20 +734,52 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict):
       y_lib = torch.sparse.mm(csr, x)
       torch.testing.assert_close(y_lib, y, rtol=1e-4, atol=1e-4 * float(
           y.abs().max()))
-      library_ms = cuda_ms(lambda: torch.sparse.mm(csr, x))
-    key = ell_mod.config_key(q, dtype, red, op)
+      # Timed in turns with the kernel, so that both see the same card.
+      kernel_ms, library_ms = paired_ms(run_all(kernel),
+                                        lambda: torch.sparse.mm(csr, x))
+    else:
+      kernel_ms = cuda_ms(run_all(kernel), iters=max(1, 20 // len(calls)),
+                          repeats=5) / len(calls)
+    del y, r
     entries.append({
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
-        "replaces": replaces, "launches": int(launches.get(key, 0)),
+        "replaces": replaces,
+        "launches": int(launches.get(ell_mod.config_key(q, dtype, red, op),
+                                     0)),
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": need / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": library_ms})
     array_bounds[name] = full / H100_BYTES_PER_S * 1e3
-    log(f"phase 4: {name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} "
-        f"ms, bound {entries[-1]['bound_ms']:.4f} ms, ELL-array bound "
+    log(f"phase 4: {name}: kernel {kernel_ms:.4f} ms a launch over "
+        f"{len(calls)} call(s), plain {plain_ms:.3f} ms, bound "
+        f"{entries[-1]['bound_ms']:.4f} ms, ELL-array bound "
         f"{array_bounds[name]:.4f} ms, library {library_ms}")
     torch.cuda.empty_cache()
+
+  # The kernel's time by frontier: all sources active (no slot reads an
+  # active flag), 10% active (a message is read only for an active source)
+  # and all but one (every flag and message).
+  frontiers = {
+      "all": active,
+      "10%": torch.rand((n,), generator=gen, device="cuda") < 0.1,
+      "all_but_one": active.clone().index_fill_(
+          0, torch.tensor([n - 1], device="cuda"), False)}
+  by_frontier = {}
+  for name, op, red, dtype, q in (
+      ("bfs,Q=1", "msg_plus_one", "min", torch.int32, 1),
+      ("sssp,Q=1", "msg_plus_edge", "min", torch.float32, 1),
+      ("pagerank,Q=1", "msg", "add", torch.float32, 1),
+      ("bfs,Q=8", "msg_plus_one", "min", torch.int32, 8)):
+    msg = (torch.randint(0, 64, (n, q), generator=gen, device="cuda",
+                         dtype=torch.int32) if dtype == torch.int32
+           else torch.rand((n, q), generator=gen, device="cuda"))
+    by_frontier[name] = {}
+    for f, a in frontiers.items():
+      by_frontier[name][f] = cuda_ms(lambda: ell_mod.ell_spmv(
+          g.cols, g.vals, g.mask, msg, a, process_op=op, reduce_kind=red,
+          **ext), repeats=3)
+  log("phase 4: kernel ms by frontier " + json.dumps(by_frontier))
 
   # One superstep of the kernel backend on this graph, split into the
   # kernel and the COO spill merge (BFS program, int32 messages).
@@ -549,14 +793,14 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict):
     recv = torch.zeros((n,), dtype=torch.bool, device="cuda")
     split[f"Q={q}"] = {
         "superstep_spmv_ms": cuda_ms(lambda: spmv_ell_cuda(
-            g, m, active, m, prog), iters=10),
+            g, m, active, m, prog, segments=ext["segments"]), iters=10),
         "kernel_ms": cuda_ms(lambda: ell_mod.ell_spmv(
             g.cols, g.vals, g.mask, msg, active, process_op=prog.process_op,
-            reduce_kind="min"), iters=10),
+            reduce_kind="min", **ext), iters=10),
         "spill_merge_ms": cuda_ms(lambda: merge_spill(
             g, y, recv, m, active, m, prog), iters=10)}
   log("phase 4: superstep split " + json.dumps(split))
-  return entries, array_bounds, split
+  return entries, array_bounds, split, by_frontier
 
 
 # ---------------------------------------------------------------------------
@@ -614,63 +858,92 @@ def scan_bound(b, s, c, n, sm_clock_hz: float) -> dict:
 def phase_scan(ss_mod, ref_fn) -> dict:
   import torch
   gen = torch.Generator(device="cuda").manual_seed(11)
+  b, s, c, _ = FALCON_SCAN
+  chosen = ss_mod.lanes_for(b, c)
   cases = []  # (shape, (seq_chunk, c_tile), kind)
   for shape in [(1, 16, 8, 4), (2, 32, 16, 8), (2, 64, 32, 16)]:
     for sc, ct in [(8, 8), (16, 16)]:
       cases.append((shape, (sc, ct), "random"))
-  cases += [((2, 100, 64, 16), (100, 64), "S=100, not a multiple of the "
-             "32-step run"),
-            ((1, 64, 200, 16), (64, 200), "C=200, not a multiple of the "
-             "128-channel tile"),
-            ((2, 48, 160, 5), (16, 32), "N=5, below the compiled width 8"),
-            ((2, 64, 128, 16), (64, 128), "dt=0"),
-            ((2, 64, 128, 16), (64, 128), "large dt"),
-            ((2, 64, 128, 16), (64, 128), "NaN in u")]
-  max_err = 0.0
+  # Every choice of lanes per channel (lanes_for picks it from B·C).
+  for bb in (1, 2, 4):
+    cases.append(((bb, 64, c, 16), (64, c), "random"))
+  # Edge cases at the prefill shape's B and C, so at its lanes.
+  for n in (4, 8, 16):
+    cases += [((b, 100, c, n), (100, c), "S=100, not a multiple of the "
+               "16-step run"),
+              ((b, 64, c + 8, n), (64, c + 8), f"C={c + 8}, not a multiple "
+               "of the block's channels"),
+              ((b, 64, c, n), (64, c), "dt=0"),
+              ((b, 64, c, n), (64, c), "large dt"),
+              ((b, 64, c, n), (64, c), "NaN in u")]
+  cases.append(((b, 48, c, 5), (16, c), "N=5, below the compiled width 8"))
+  max_err, lanes_run = 0.0, set()
   for shape, (sc, ct), kind in cases:
     u, dt, a, bm, cm = scan_inputs(gen, *shape)
     if kind == "dt=0":
       dt.zero_()
     elif kind == "large dt":
-      dt = 1e4 * (1.0 + torch.rand(dt.shape, generator=gen, device="cuda"))
+      dt = 1e5 * (1.0 + torch.rand(dt.shape, generator=gen, device="cuda"))
       if float(dt.min() * a.abs().min()) < 104.0:
         raise AssertionError("large-dt case: exp(dt·a) does not underflow")
+      # u scaled down so that dt·u and y stay of order 1, where the
+      # absolute tolerance means something.
+      u = u * 1e-5
     elif kind == "NaN in u":
       u[0, 10, 5] = float("nan")
       u[1, 0, 77] = float("nan")
     y = ss_mod.selective_scan(u, dt, a, bm, cm, seq_chunk=sc, c_tile=ct)
     yr = ref_fn(u, dt, a, bm, cm)
     torch.cuda.synchronize()
-    what = f"{shape} chunks {(sc, ct)} {kind}"
+    lanes = ss_mod.lanes_for(shape[0], shape[2])
+    lanes_run.add(lanes)
+    what = f"{shape} chunks {(sc, ct)} lanes {lanes} {kind}"
     if kind == "dt=0" and y.any():
       raise AssertionError(f"{what}: state left 0")
     if kind == "NaN in u" and not (torch.isnan(y[0, 10:, 5]).all()
                                    and torch.isnan(y[1, :, 77]).all()):
       raise AssertionError(f"{what}: NaN did not reach the output")
+    if kind != "random" and lanes != chosen:
+      raise AssertionError(f"{what}: not at the prefill's {chosen} lanes")
     max_err = max(max_err, compare_scan(y, yr, 2e-5, what))
-  log(f"phase 5: scan kernel == plain on {len(cases)} cases "
-      f"(max abs err {max_err:.3g})")
+  if lanes_run != set(ss_mod.LANE_CHOICES):
+    raise AssertionError(f"the sweep ran lanes {sorted(lanes_run)} only")
+  log(f"phase 5: scan kernel == plain on {len(cases)} cases, lanes "
+      f"{sorted(lanes_run)}, edge cases at {chosen} (max abs err "
+      f"{max_err:.3g})")
 
-  b, s, c, n = FALCON_SCAN
-  args = scan_inputs(gen, b, s, c, n)
-  y = ss_mod.selective_scan(*args)
-  yr = ref_fn(*args)
-  torch.cuda.synchronize()
-  scale = float(yr.abs().max())
-  err = compare_scan(y, yr, 2e-5 * scale, f"full width {FALCON_SCAN}")
-  del y, yr
-  kernel_ms = cuda_ms(lambda: ss_mod.selective_scan(*args))
-  plain_ms = cuda_ms(lambda: ref_fn(*args), iters=2, warmup=1)
-  bound = scan_bound(b, s, c, n, max_sm_clock_hz())
-  log(f"phase 5: full width {FALCON_SCAN}: max abs err {err:.3g} "
-      f"(max|y| {scale:.3g}); kernel {kernel_ms:.4f} ms, plain "
-      f"{plain_ms:.2f} ms, bound {bound['bound_ms']:.4f} ms "
-      f"({bound['bound_by']}; bytes {bound['bytes_ms']:.4f}, f32 ops "
-      f"{bound['f32_ops_ms']:.4f}, exp at the SFU rate "
-      f"{bound['sfu_exp_ms']:.4f})")
-  return {"sweep_cases": len(cases), "sweep_max_abs_err": max_err,
-          "full_width_max_abs_err": err, "full_width_max_abs_y": scale,
-          "ms": kernel_ms, "plain_ms": plain_ms, "bound": bound}
+  # Full width, at the prefill shape and at one batch row.
+  out = {"sweep_cases": len(cases), "sweep_max_abs_err": max_err,
+         "lanes": chosen}
+  sm_clock = max_sm_clock_hz()
+  for shape in (FALCON_SCAN, (1,) + FALCON_SCAN[1:]):
+    args = scan_inputs(gen, *shape)
+    yr = ref_fn(*args)
+    torch.cuda.synchronize()
+    scale = float(yr.abs().max())
+    y = ss_mod.selective_scan(*args)
+    err = compare_scan(y, yr, 2e-5 * scale, f"full width {shape}")
+    del y
+    kernel_ms = cuda_ms(lambda: ss_mod.selective_scan(*args))
+    bound = scan_bound(*shape, sm_clock)
+    lanes = ss_mod.lanes_for(shape[0], shape[2])
+    if shape == FALCON_SCAN:
+      plain_ms = cuda_ms(lambda: ref_fn(*args), iters=2, warmup=1)
+      out.update(full_width_max_abs_err=err, full_width_max_abs_y=scale,
+                 ms=kernel_ms, plain_ms=plain_ms, bound=bound)
+    else:
+      out["b1"] = {"ms": kernel_ms, "max_abs_err": err, "max_abs_y": scale,
+                   "lanes": lanes, "bound": bound}
+    log(f"phase 5: {shape}, lanes {lanes}: {kernel_ms:.4f} ms, max|y| "
+        f"{scale:.3g}, max abs err {err:.3g}, bound {bound['bound_ms']:.4f} "
+        f"ms ({bound['bound_by']}; bytes {bound['bytes_ms']:.4f}, f32 ops "
+        f"{bound['f32_ops_ms']:.4f}, exp at the SFU rate "
+        f"{bound['sfu_exp_ms']:.4f})")
+    del args, yr
+    torch.cuda.empty_cache()
+  log(f"phase 5: selective_scan at {FALCON_SCAN}: {out['ms']:.4f} ms, plain "
+      f"{out['plain_ms']:.2f} ms, max abs err {out['full_width_max_abs_err']:.3g}")
+  return out
 
 
 # ---------------------------------------------------------------------------
@@ -885,10 +1158,10 @@ def main(argv=None) -> int:
   log(f"phase 1: both builds took {time.perf_counter() - t0:.2f} s")
 
   sweep = phase_kernel_sweep(ell_mod, ref_mod)
-  slice_stats, g = phase_slice(args.scale, 32, ell_mod)
-  entries, array_bounds, split = phase_timing(g, ell_mod, ref_mod,
-                                              slice_stats["launches"])
-  del g  # the graph phases' tensors, before the 27 GiB of phase 6
+  slice_stats, g, recorded = phase_slice(args.scale, 32, ell_mod)
+  entries, array_bounds, split, by_frontier = phase_timing(
+      g, ell_mod, ref_mod, slice_stats["launches"], recorded)
+  del g, recorded  # the graph phases' tensors, before phase 6's 27 GiB
   torch.cuda.empty_cache()
   scan = phase_scan(ss_mod, selective_scan_ref)
   lm = phase_lm(ss_mod)
@@ -912,7 +1185,7 @@ def main(argv=None) -> int:
   (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
       "card": card, "build": builds, "sweep": sweep, "slice": slice_stats,
       "kernels": entries, "ell_array_bound_ms": array_bounds,
-      "superstep_split": split, "scan": scan, "lm": lm}, indent=1))
+      "ell_ms_by_frontier": by_frontier, "superstep_split": split, "scan": scan, "lm": lm}, indent=1))
   log(card)
   print(json.dumps({"kernels": entries}), flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,11 @@ Padded ELL rows map to vertex ``n`` in ``row_of``, as in the reference.
 The port never scatters through ``row_of``: it un-permutes with the gather
 ``y_packed[packed_of]``, which cannot touch a padded row.
 
+An ELL graph also carries, computed once where it is made, each packed
+row's extent ``row_end`` (one past its last set slot) and whether the mask
+is a prefix of every row (:func:`ell_extent`): the CUDA kernel reads no
+slot beyond a row's extent, and no mask where it is a prefix.
+
 Orientation: edges (src -> dst); pull-mode SpMV ``y[v] = ⊕ process(x[u],
 w_uv, prop[v])`` over every edge ``(u, v)``.
 """
@@ -66,13 +71,31 @@ class CooGraph:
     return CooGraph(self.n, **{k: v.to(dev) for k, v in self.arrays().items()})
 
 
+def ell_extent(mask) -> Tuple[np.ndarray, bool]:
+  """``(row_end, mask_prefix)`` of a ``bool[n_pad, W]`` mask (numpy or a
+  tensor, read back to the host once).
+
+  ``row_end[r]`` (int32) is one past the last set slot of row r, 0 for an
+  empty row; ``mask_prefix`` says the set slots of every row are exactly
+  ``[0, row_end)``.
+  """
+  if isinstance(mask, torch.Tensor):
+    mask = mask.cpu().numpy()
+  mask = np.asarray(mask, bool)
+  width = mask.shape[1]
+  last = width - np.argmax(mask[:, ::-1], axis=1) if width else 0
+  row_end = np.where(mask.any(axis=1), last, 0).astype(np.int32)
+  return row_end, bool((mask.sum(axis=1) == row_end).all())
+
+
 @dataclasses.dataclass(frozen=True)
 class EllGraph:
   """Degree-sorted ELL rows plus a COO spill for rows wider than ``width``.
 
   ``cols[r, s]`` is the source of the s-th incoming edge of packed row r,
   ``row_of[r]`` the vertex of packed row r (``n`` for padding rows), and
-  ``packed_of[v]`` the packed row of vertex v.
+  ``packed_of[v]`` the packed row of vertex v.  ``row_end`` and
+  ``mask_prefix`` are the mask's :func:`ell_extent`.
   """
 
   n: int
@@ -83,6 +106,8 @@ class EllGraph:
   row_of: torch.Tensor     # int64[n_pad]
   packed_of: torch.Tensor  # int64[n]
   spill: Optional[CooGraph]
+  row_end: torch.Tensor    # int32[n_pad]
+  mask_prefix: bool
 
   @property
   def n_pad(self) -> int:
@@ -104,7 +129,8 @@ class EllGraph:
     return EllGraph(
         self.n, self.width, self.cols.to(dev), self.vals.to(dev),
         self.mask.to(dev), self.row_of.to(dev), self.packed_of.to(dev),
-        None if self.spill is None else self.spill.to(dev))
+        None if self.spill is None else self.spill.to(dev),
+        self.row_end.to(dev), self.mask_prefix)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,8 +195,10 @@ def from_arrays(kind: str, n: int, arrays: Dict[str, np.ndarray],
   if kind == "ell":
     w = int(width) if width is not None else int(t["cols"].shape[1])
     sp = None if spill is None else from_arrays("coo", n, spill, device=dev)
+    row_end, prefix = ell_extent(arrays["mask"])
     return EllGraph(n, w, t["cols"], t["vals"], t["mask"], t["row_of"],
-                    t["packed_of"], sp)
+                    t["packed_of"], sp, torch.from_numpy(row_end).to(dev),
+                    prefix)
   if kind == "dense":
     return DenseGraph(n, t["vals"], t["struct"])
   raise ValueError(f"unknown graph kind {kind!r}")

@@ -18,13 +18,17 @@ callable cannot be compiled into a CUDA kernel the way Pallas traces it into
 its body, so a program that wants the hand-written ELL kernel names one of
 the per-edge forms of :data:`PROCESS_FORMS` instead of giving a
 ``process_message``; the program then takes that form as its
-``process_message`` and reads no destination property, so the kernel and
-the torch backends compute the same function:
+``process_message``, and reads the destination property exactly when the
+form does (:data:`DST_FORMS`), so the kernel and the torch backends compute
+the same function:
 
 * ``"msg"``: ``m`` (PageRank, delta-PageRank);
 * ``"msg_plus_one"``: ``m + 1`` (BFS);
 * ``"msg_plus_edge"``: ``m + e`` (SSSP, MIN_PLUS);
-* ``"msg_times_edge"``: ``m * e`` (PLUS_TIMES, MAX_TIMES).
+* ``"msg_times_edge"``: ``m * e`` (PLUS_TIMES, MAX_TIMES);
+* ``"edge_minus_msg_dst_times_msg"``: ``(e - m * d) * m``, which reads the
+  destination property ``d`` (the per-lane update of collaborative
+  filtering; the reference's ``plus_dst`` test semiring).
 
 A program without a ``process_op`` is not eligible for the kernel.
 """
@@ -48,8 +52,10 @@ PROCESS_FORMS = {
     "msg_plus_one": lambda m, e, d: m + 1,
     "msg_plus_edge": lambda m, e, d: m + e,
     "msg_times_edge": lambda m, e, d: m * e,
+    "edge_minus_msg_dst_times_msg": lambda m, e, d: (e - m * d) * m,
 }
 PROCESS_OPS = tuple(PROCESS_FORMS)
+DST_FORMS = frozenset({"edge_minus_msg_dst_times_msg"})  # forms that read d
 
 
 def _default_activate(old: PyTree, new: PyTree) -> torch.Tensor:
@@ -117,7 +123,8 @@ class GraphProgram:
     if self.process_message not in (None, form):
       raise ValueError("give process_message or process_op, not both")
     object.__setattr__(self, "process_message", form)
-    object.__setattr__(self, "process_reads_dst", False)
+    object.__setattr__(self, "process_reads_dst",
+                       self.process_op in DST_FORMS)
 
   def reduce_fn(self) -> Callable[[PyTree, PyTree], PyTree]:
     if self.reduce is not None:

@@ -1,11 +1,16 @@
 """Generalized ELL SpMV / multi-query SpMM: the CUDA kernel's wrapper.
 
 Replaces ``src/repro/kernels/ell_spmv.py::ell_spmv_pallas``, both grids: the
-single-query grid (Q = 1) and the ``block_queries`` multi-query SpMM (Q > 1).
-The kernel is ``csrc/ell_spmv.cu``; its header says what it computes, what
-bounds it (bytes: 1 mask byte per ELL slot, 4 bytes of cols and, for the
-forms that read the edge, 4 of vals per valid slot, plus the message
-gathers) and how its design answers that.
+single-query grid (Q = 1) and the ``block_queries`` multi-query SpMM (Q > 1),
+and its destination-property operand ``dprop``.  The kernel is
+``csrc/ell_spmv.cu``; its header says what it computes, what bounds it
+(the bytes the graph needs: 4 bytes of cols and, for the forms that read
+the edge, 4 of vals per valid slot, 4 bytes of row extent per row, the
+messages and outputs once; on the card, the random gathers) and how its
+design answers that (rows get lanes matched to their extent from a table
+of :class:`RowSegments`, which this module owns; each call is one
+cooperative launch that skips the per-slot active flags when every source
+is active).
 
 The kernel is built with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at its first launch, into ``build/`` at the repository
@@ -19,21 +24,36 @@ tensor it launches or raises.  :data:`launches` counts the launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.vertex_program import PROCESS_FORMS, PROCESS_OPS
+from repro_torch.core.graph import ell_extent
+from repro_torch.core.vertex_program import (DST_FORMS, PROCESS_FORMS,
+                                             PROCESS_OPS)
 from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.ref import ell_spmv_ref
 
-EDGE_OPS = ("msg_plus_edge", "msg_times_edge")  # the forms that read vals
+# The forms that read vals.
+EDGE_OPS = ("msg_plus_edge", "msg_times_edge", "edge_minus_msg_dst_times_msg")
 # Codes passed to the C function; the orders match the enums in the source.
 _OP_CODE = {op: i for i, op in enumerate(PROCESS_OPS)}
 _REDUCE_CODE = {"add": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.int32: 2}
+# Launch flags, as the source's Flags enum.
+_MASK_IS_PREFIX, _VEC_SLOTS, _VEC_MSG, _VEC_ACTIVE = 1, 2, 4, 8
 MAX_QUERY_TILE = 8
 DEFAULT_BLOCK_ROWS = 8
+# Lanes the kernel gives one packed row: a power of two in
+# [MIN_ROW_LANES, 32], the least that covers the row's extent at
+# SLOTS_PER_LANE slots a lane (the source's slots_per_lane<1>(): one 16-byte
+# load of cols).  Rows are grouped in runs of SEGMENT_CHUNK, each run taking
+# the lanes of its longest row.
+SLOTS_PER_LANE = 4
+MIN_ROW_LANES = 2
+SEGMENT_CHUNK = 32
 
 
 def config_key(q: int, dtype: torch.dtype, reduce_kind: str,
@@ -76,13 +96,72 @@ launches = LaunchCounter()
 
 def _bind(lib: ctypes.CDLL) -> None:
   fn = lib.graphmat_ell_spmv
-  fn.argtypes = ([ctypes.c_void_p] * 7
-                 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+  fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
                  + [ctypes.c_void_p])
   fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("ell_spmv.cu", _bind)
+# The kernel's grid barrier and all-active flag keep 4 words from launch
+# to launch.  Launches on one stream run in order, so each stream has its
+# own.  A launch that faults leaves the CUDA context unusable (the error is
+# sticky), so no later launch meets words that a launch left half crossed.
+_syncs: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _sync_words(dev: torch.device, stream: int) -> torch.Tensor:
+  key = (dev, stream)
+  if key not in _syncs:
+    _syncs[key] = torch.zeros(4, dtype=torch.int32, device=dev)
+  return _syncs[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSegments:
+  """How the kernel spreads packed rows over warps.
+
+  ``table[i] = (first row, end row, lanes per row, first warp)``: the rows
+  ``[first, end)`` get that many lanes each, and a warp serves ``32 /
+  lanes`` consecutive rows; ``num_warps`` is the total.
+  """
+
+  table: torch.Tensor  # int32[num_segments, 4]
+  num_warps: int
+
+
+def row_lanes(length) -> np.ndarray:
+  """Lanes for rows of extent ``length`` (see :data:`SLOTS_PER_LANE`)."""
+  need = -(-np.asarray(length, np.int64) // SLOTS_PER_LANE)
+  lanes = np.full(need.shape, 32, np.int32)
+  for cand in (16, 8, 4, MIN_ROW_LANES):
+    lanes[need <= cand] = cand
+  return lanes
+
+
+def row_segments(row_end: torch.Tensor) -> RowSegments:
+  """The :class:`RowSegments` of packed rows whose extents are
+  ``row_end`` (read back to the host once), on ``row_end``'s device.
+
+  Runs of :data:`SEGMENT_CHUNK` rows take the lanes of their longest row,
+  and runs of equal lanes merge into one segment, so a degree-sorted graph
+  has a few.
+  """
+  ends = row_end.cpu().numpy()
+  n_pad = ends.shape[0]
+  chunks = -(-n_pad // SEGMENT_CHUNK)
+  padded = np.zeros(chunks * SEGMENT_CHUNK, np.int32)
+  padded[:n_pad] = ends
+  lanes = row_lanes(padded.reshape(chunks, SEGMENT_CHUNK).max(axis=1))
+  starts = np.flatnonzero(np.diff(lanes, prepend=-1))
+  table, warp = [], 0
+  for i, lo in enumerate(starts):
+    hi = starts[i + 1] if i + 1 < len(starts) else chunks
+    r0, r1 = int(lo) * SEGMENT_CHUNK, min(int(hi) * SEGMENT_CHUNK, n_pad)
+    g = int(lanes[lo])
+    table.append((r0, r1, g, warp))
+    warp += -(-(r1 - r0) * g // 32)
+  return RowSegments(torch.tensor(table, dtype=torch.int32,
+                                  device=row_end.device).reshape(-1, 4), warp)
 
 
 def plain_process(process_op: str):
@@ -93,13 +172,22 @@ def plain_process(process_op: str):
 
 
 def takes(msg: torch.Tensor, vals: torch.Tensor, process_op: str,
-          reduce_kind: str) -> bool:
+          reduce_kind: str, dprop: Optional[torch.Tensor] = None) -> bool:
   """Whether the kernel takes messages ``msg`` ([n] or [n, Q]) with this
   form and reduce; the forms that read the edge need ``vals`` in ``msg``'s
-  dtype."""
-  return (process_op in PROCESS_FORMS and reduce_kind in _REDUCE_CODE
+  dtype, and the forms that read the destination property need ``dprop``
+  in it too, shaped as ``msg`` is: [n] with [n], [n, 1] or [n, Q] with
+  [n, Q] (the shapes whose broadcast is lane by lane)."""
+  if not (process_op in PROCESS_FORMS and reduce_kind in _REDUCE_CODE
           and msg.ndim <= 2 and msg.dtype in _DTYPE_CODE
-          and (process_op not in EDGE_OPS or vals.dtype == msg.dtype))
+          and (process_op not in EDGE_OPS or vals.dtype == msg.dtype)):
+    return False
+  if process_op not in DST_FORMS:
+    return True
+  q = msg.shape[1] if msg.ndim == 2 else 1
+  return (dprop is not None and dprop.dtype == msg.dtype
+          and dprop.ndim == msg.ndim and dprop.shape[0] == msg.shape[0]
+          and (dprop.ndim == 1 or dprop.shape[1] in (1, q)))
 
 
 def _check(cond: bool, what: str) -> None:
@@ -107,9 +195,17 @@ def _check(cond: bool, what: str) -> None:
     raise ValueError(f"ell_spmv: {what}")
 
 
+def _aligned(t: torch.Tensor, nbytes: int) -> bool:
+  return t.data_ptr() % nbytes == 0
+
+
 def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
              msg: torch.Tensor, active: torch.Tensor, *, process_op: str,
-             reduce_kind: str, block_rows: Optional[int] = None,
+             reduce_kind: str, dprop: Optional[torch.Tensor] = None,
+             row_end: Optional[torch.Tensor] = None,
+             mask_prefix: Optional[bool] = None,
+             segments: Optional[RowSegments] = None,
+             block_rows: Optional[int] = None,
              block_queries: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
   """``(y [n_pad, Q], recv int8[n_pad])`` for one ELL block.
@@ -122,7 +218,15 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     process_op: a key of :data:`PROCESS_FORMS`; the edge forms need ``vals`` in
       ``msg``'s dtype.
     reduce_kind: add | min | max.
-    block_rows: packed rows (warps) per thread block, 1..32.
+    dprop: [n_pad, Kd] destination properties in packed-row order, Kd = 1
+      or Q, in ``msg``'s dtype: given for the forms of :data:`DST_FORMS`
+      and only for them.
+    row_end, mask_prefix: the mask's :func:`ell_extent` (an
+      :class:`EllGraph` carries both); computed from the mask, with a read
+      back to the host, unless both are given.
+    segments: :func:`row_segments` of ``row_end`` (the ``cuda_ell`` backend
+      keeps one per graph); computed, with a read back, when not given.
+    block_rows: warps per thread block, 1..32.
     block_queries: query tile, 1..8 (default: the largest divisor of Q that
       is at most 8).
   """
@@ -132,11 +236,24 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
          and mask.shape == cols.shape, "cols, vals, mask must be [n_pad, W]")
   _check(msg.ndim == 2 and active.shape == (msg.shape[0],),
          "msg must be [n_src, Q] and active [n_src]")
-  tensors = (cols, vals, mask, msg, active)
+  n_pad, width = cols.shape
+  q = msg.shape[1]
+  if process_op in DST_FORMS:
+    _check(dprop is not None and dprop.ndim == 2
+           and dprop.shape[0] == n_pad and dprop.shape[1] in (1, q),
+           f"{process_op} needs dprop [n_pad, 1] or [n_pad, Q]")
+    _check(dprop.dtype == msg.dtype,
+           f"dprop must have msg's dtype {msg.dtype}")
+  else:
+    _check(dprop is None, f"{process_op} reads no dprop")
+  tensors = (cols, vals, mask, msg, active) + (
+      () if dprop is None else (dprop,))
   if all(t.device.type == "cpu" for t in tensors):
-    dprop = torch.zeros((cols.shape[0], 1), dtype=msg.dtype)
+    if dprop is None:
+      dprop = torch.zeros((n_pad, 1), dtype=msg.dtype)
     return ell_spmv_ref(cols, vals, mask, msg, active, dprop,
-                        process=plain_process(process_op), reduce_kind=reduce_kind)
+                        process=plain_process(process_op),
+                        reduce_kind=reduce_kind)
 
   dev = cols.device
   _check(dev.type == "cuda" and all(t.device == dev for t in tensors),
@@ -148,15 +265,31 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
   _check(process_op not in EDGE_OPS or vals.dtype == msg.dtype,
          f"{process_op} needs vals in msg's dtype {msg.dtype}")
   _check(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")
-  n_pad, width = cols.shape
-  q = msg.shape[1]
-  rows = DEFAULT_BLOCK_ROWS if block_rows is None else int(block_rows)
-  _check(1 <= rows <= 32, f"block_rows={rows} must be in 1..32")
+  warps = DEFAULT_BLOCK_ROWS if block_rows is None else int(block_rows)
+  _check(1 <= warps <= 32, f"block_rows={warps} must be in 1..32")
   tile = block_queries or _pick_query_tile(q)
   tile = min(int(tile), q)
   _check(1 <= tile <= MAX_QUERY_TILE,
          f"block_queries={tile} must be in 1..{MAX_QUERY_TILE}")
+  if row_end is None or mask_prefix is None:
+    ends, mask_prefix = ell_extent(mask)
+    row_end = torch.from_numpy(ends).to(dev)
+  if segments is None:
+    segments = row_segments(row_end)
+  _check(row_end.shape == (n_pad,) and row_end.dtype == torch.int32
+         and row_end.device == dev and segments.table.device == dev,
+         "row_end must be int32[n_pad] and segments its table, on the "
+         "mask's device")
 
+  size = msg.element_size()
+  flags = _MASK_IS_PREFIX if mask_prefix else 0
+  if (width % 4 == 0 and _aligned(cols, 16) and _aligned(vals, 4 * size)
+      and _aligned(mask, 4)):
+    flags |= _VEC_SLOTS
+  if q % 4 == 0 and tile % 4 == 0 and _aligned(msg, 16):
+    flags |= _VEC_MSG
+  if _aligned(active, 16):
+    flags |= _VEC_ACTIVE
   lib = LIBRARY.load()
   y = torch.empty((n_pad, q), dtype=msg.dtype, device=dev)
   recv = torch.empty((n_pad,), dtype=torch.int8, device=dev)
@@ -164,8 +297,12 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.graphmat_ell_spmv(
         cols.data_ptr(), vals.data_ptr(), mask.data_ptr(), msg.data_ptr(),
-        active.data_ptr(), y.data_ptr(), recv.data_ptr(), n_pad, width, q,
-        tile, rows, _DTYPE_CODE[msg.dtype], _REDUCE_CODE[reduce_kind],
+        active.data_ptr(), None if dprop is None else dprop.data_ptr(),
+        row_end.data_ptr(), segments.table.data_ptr(), y.data_ptr(),
+        recv.data_ptr(), _sync_words(dev, stream).data_ptr(), msg.shape[0],
+        segments.table.shape[0], segments.num_warps, width, q, tile,
+        1 if dprop is None else dprop.shape[1], flags, warps,
+        _DTYPE_CODE[msg.dtype], _REDUCE_CODE[reduce_kind],
         _OP_CODE[process_op], stream)
   LIBRARY.check(rc, "ell_spmv")
   launches.add(config_key(q, msg.dtype, reduce_kind, process_op))

@@ -8,11 +8,19 @@ package.
   ``block_queries``.
 * The ``cuda_ell`` backend on CPU, spill and un-permute included, against
   the JAX ``pallas`` backend.
+* The graph's row extents and prefix flag, and the kernel's lane segments
+  (kept once per graph by the ``cuda_ell`` backend).
+* The destination-reading form ``edge_minus_msg_dst_times_msg`` through the
+  wrapper against the JAX kernel's ``plus_dst``, and through
+  ``run_fixed_iters`` with ``Plan("cuda_ell")`` against the JAX engine
+  with ``Plan("pallas")``; the wrapper's refusals of a bad ``dprop``.
 * On a card only: the kernel against its plain version.
 
 Tolerances: min/max and int32 bitwise; float add rtol 1e-5 (atol 1e-5 as
 in ``tests/test_kernels.py``), since the sums run in different orders.
 """
+
+import gc
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +35,9 @@ from repro.algos.sssp import sssp_program as j_sssp_program  # noqa: E402
 from repro.core import backends as jbe  # noqa: E402
 from repro.core import graph as JG  # noqa: E402
 from repro.core import spmv as jspmv  # noqa: E402
+from repro.core.engine import run_fixed_iters as j_run_fixed_iters  # noqa: E402
+from repro.core.vertex_program import (  # noqa: E402
+    GraphProgram as JGraphProgram)
 from repro.kernels.ell_spmv import ell_spmv_pallas  # noqa: E402
 from repro_torch.algos.bfs import bfs_program  # noqa: E402
 from repro_torch.algos.pagerank import pagerank_program  # noqa: E402
@@ -34,6 +45,7 @@ from repro_torch.algos.sssp import sssp_program  # noqa: E402
 from repro_torch.core import backends as tbe  # noqa: E402
 from repro_torch.core import graph as TG  # noqa: E402
 from repro_torch.core import spmv as tspmv  # noqa: E402
+from repro_torch.core.engine import run_fixed_iters  # noqa: E402
 from repro_torch.core.vertex_program import (  # noqa: E402
     PROCESS_FORMS, GraphProgram)
 from repro_torch.kernels import ell_spmv as kmod  # noqa: E402
@@ -161,10 +173,10 @@ def test_cuda_ell_rejects_what_the_kernel_does_not_take(rmat_small):
   with pytest.raises(ValueError, match="process_op"):
     tspmv.spmv(g, msg, act, msg, no_op, backend=plan)
   assert tbe.resolve(tbe.AUTO_PLAN, g, msg, msg, no_op).name == "ell"
-  # A program that reads the destination property has no process_op form.
+  # A destination-reading process_message of its own names no process_op.
   reads_dst = GraphProgram(process_message=lambda m, e, d: m * d,
                            reduce_kind="add")
-  with pytest.raises(ValueError, match="ROADMAP"):
+  with pytest.raises(ValueError, match="PROCESS_FORMS"):
     tspmv.spmv(g, msg, act, msg, reads_dst, backend=plan)
   with pytest.raises(ValueError, match="not both"):
     GraphProgram(process_message=lambda m, e, d: m * d, process_op="msg")
@@ -195,6 +207,188 @@ def test_wrapper_rejects_bad_launch_arguments():
     kmod.ell_spmv(cols, cols.float(), mask, torch.ones(4, 1),
                   torch.ones(5, dtype=torch.bool), process_op="msg",
                   reduce_kind="min")
+
+
+LAYOUT_MASKS = {
+    # name -> (mask rows, expected row_end, expected prefix flag)
+    "prefix": ([[1, 1, 1, 0], [1, 0, 0, 0], [0, 0, 0, 0]], [3, 1, 0], True),
+    "holes": ([[1, 0, 1, 0], [1, 1, 0, 0]], [3, 2], False),
+    "empty_row": ([[0, 0, 0, 0], [1, 1, 1, 1]], [0, 4], True),
+    "last_slot_only": ([[0, 0, 0, 1], [1, 1, 0, 0]], [4, 2], False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUT_MASKS))
+def test_layout_row_end_and_prefix(name):
+  rows, row_end, prefix = LAYOUT_MASKS[name]
+  ends, mask_prefix = TG.ell_extent(np.array(rows, bool))
+  assert ends.dtype == np.int32 and ends.tolist() == row_end
+  assert mask_prefix is prefix
+  # One segment covers the rows, with the lanes of the longest row.
+  segs = kmod.row_segments(torch.from_numpy(ends))
+  assert segs.table.tolist() == [
+      [0, len(rows), int(kmod.row_lanes(max(row_end))), 0]]
+
+
+def _check_segments(row_end, n_pad):
+  segments = kmod.row_segments(row_end)
+  segs = segments.table.tolist()
+  assert segs[0][0] == 0 and segs[-1][1] == n_pad
+  warp = 0
+  for (r0, r1, lanes, w0), nxt in zip(segs, segs[1:] + [None]):
+    assert w0 == warp and lanes in (2, 4, 8, 16, 32)
+    assert nxt is None or nxt[0] == r1
+    # Every row of the segment fits its lanes at 4 slots a lane.
+    assert int(row_end[r0:r1].max()) <= kmod.SLOTS_PER_LANE * lanes
+    warp += -(-(r1 - r0) * lanes // 32)
+  assert segments.num_warps == warp
+  return segs
+
+
+def test_layout_of_builder_and_random_graphs(rmat_small):
+  n, src, dst, w = rmat_small
+  g = TG.build_ell(src, dst, w, n=n, device="cpu")
+  mask = g.mask.numpy()
+  assert g.mask_prefix  # build_ell fills each row from slot 0
+  assert g.row_end.dtype == torch.int32
+  assert g.row_end.tolist() == mask.sum(axis=1).tolist()
+  # Degree-sorted rows: the lanes never rise along the rows.
+  lanes = [s[2] for s in _check_segments(g.row_end, g.n_pad)]
+  assert lanes == sorted(lanes, reverse=True)
+  # The same graph carried across from the JAX builder's arrays.
+  jg = JG.build_ell(src, dst, w, n=n)
+  tg = TG.from_arrays("ell", n, {f: np.asarray(getattr(jg, f)) for f in (
+      "cols", "vals", "mask", "row_of", "packed_of")}, device="cpu")
+  assert torch.equal(tg.row_end, g.row_end) and tg.mask_prefix
+  # A random mask (rows unsorted, holes): segments still cover every row.
+  rmask = np.random.default_rng(3).uniform(size=(300, 40)) > 0.6
+  rmask[7] = False
+  rmask[9, :] = False
+  rmask[9, -1] = True
+  ends, prefix = TG.ell_extent(torch.from_numpy(rmask))
+  assert not prefix and ends[7] == 0 and ends[9] == 40
+  _check_segments(torch.from_numpy(ends), 300)
+
+
+def test_backend_keeps_segments_per_graph(rmat_small):
+  """The cuda_ell backend makes a graph's row segments once and lets them
+  go with the graph."""
+  n, src, dst, w = rmat_small
+  g = TG.build_ell(src, dst, w, n=n, device="cpu")
+  backend = tbe.get_backend("cuda_ell")
+  first = backend.segments(g)
+  assert backend.segments(g) is first
+  assert torch.equal(first.table, kmod.row_segments(g.row_end).table)
+  key = id(g)
+  del g
+  gc.collect()
+  assert key not in backend._segments
+
+
+PLUS_DST, _ = PROCS["plus_dst"]
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8, 1), (64, 16, 100, 1),
+                                   (128, 24, 50, 4), (256, 8, 256, 8)])
+@pytest.mark.parametrize("kd", ["one", "k"])
+def test_wrapper_dst_form_matches_jax_plus_dst(shape, kd):
+  n_pad, width, n_src, k = shape
+  kd = 1 if kd == "one" else k
+  rng = np.random.default_rng(n_pad + width + kd)
+  cols, vals, mask = make_ell(rng, n_pad, width, n_src, np.float32)
+  msg = rng.standard_normal((n_src, k)).astype(np.float32)
+  act = rng.uniform(size=n_src) > 0.2
+  dprop = rng.standard_normal((n_pad, kd)).astype(np.float32)
+  yj, rj = ell_spmv_pallas(*map(jnp.asarray, (cols, vals, mask, msg, act,
+                                              dprop)),
+                           process=PLUS_DST, reduce_kind="add")
+  before = kmod.launches.total
+  yt, rt = kmod.ell_spmv(*map(torch.from_numpy, (cols, vals, mask, msg, act)),
+                         process_op="edge_minus_msg_dst_times_msg",
+                         reduce_kind="add", dprop=torch.from_numpy(dprop))
+  assert kmod.launches.total == before
+  np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+  _assert(yt, yj, "add")
+
+
+def _cf_like_programs(lanewise: bool):
+  """One GD-style sweep program on a single-leaf property: each edge sends
+  ``(w - p_u * p_v) * p_u`` (the reference's ``plus_dst``)."""
+  gamma, lam = 0.05, 0.1
+  apply = lambda red, old: old + gamma * (red - lam * old)  # noqa: E731
+  jprog = JGraphProgram(process_message=lambda m, e, d: (e - m * d) * m,
+                        reduce_kind="add", apply=apply,
+                        process_reads_dst=True, lanewise=lanewise,
+                        name="cf_like")
+  tprog = GraphProgram(process_op="edge_minus_msg_dst_times_msg",
+                       reduce_kind="add", apply=apply, lanewise=lanewise,
+                       name="cf_like")
+  return jprog, tprog
+
+
+@pytest.mark.parametrize("q", [0, 4])
+def test_dst_program_run_fixed_iters_matches_jax(rmat_small, q):
+  """Spill (width 8), un-permute and the destination property included;
+  q=0 is a scalar property, q=4 four lanes each reading their own d."""
+  n, src, dst, w = rmat_small
+  jg = JG.build_ell(src, dst, w, n=n, width=8)
+  tg = TG.build_ell(src, dst, w, n=n, width=8, device="cpu")
+  rng = np.random.default_rng(11)
+  p0 = rng.uniform(0.0, 0.5, (n,) if q == 0 else (n, q)).astype(np.float32)
+  act = np.ones(n, bool)
+  jprog, tprog = _cf_like_programs(lanewise=q > 0)
+  assert tprog.process_reads_dst
+  assert tbe.resolve(tbe.AUTO_PLAN, tg, torch.from_numpy(p0),
+                     torch.from_numpy(p0), tprog).name == "cuda_ell"
+  js = j_run_fixed_iters(jg, jprog, jnp.asarray(p0), jnp.asarray(act), 3,
+                         backend=jbe.Plan(backend="pallas"))
+  ts = run_fixed_iters(tg, tprog, torch.from_numpy(p0), torch.from_numpy(act),
+                       3, backend=tbe.Plan(backend="cuda_ell"))
+  np.testing.assert_allclose(ts.prop.numpy(), np.asarray(js.prop),
+                             rtol=1e-5, atol=1e-5)
+
+
+DPROP_REFUSALS = {
+    # name -> (dprop for msg float32[40, 4] on a [32, 16] block, message)
+    "missing": (None, "needs dprop"),
+    "kd_not_1_or_q": (torch.zeros(32, 3), "needs dprop"),
+    "rows_not_n_pad": (torch.zeros(40, 1), "needs dprop"),
+    "one_dimensional": (torch.zeros(32), "needs dprop"),
+    "dtype": (torch.zeros(32, 4, dtype=torch.float64), "dtype"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DPROP_REFUSALS))
+def test_wrapper_rejects_bad_dprop(name):
+  dprop, match = DPROP_REFUSALS[name]
+  cols = torch.zeros((32, 16), dtype=torch.int32)
+  mask = torch.ones((32, 16), dtype=torch.bool)
+  msg, act = torch.ones(40, 4), torch.ones(40, dtype=torch.bool)
+  with pytest.raises(ValueError, match=match):
+    kmod.ell_spmv(cols, cols.float(), mask, msg, act,
+                  process_op="edge_minus_msg_dst_times_msg",
+                  reduce_kind="add", dprop=dprop)
+
+
+def test_dprop_only_for_forms_that_read_it(rmat_small):
+  cols = torch.zeros((32, 16), dtype=torch.int32)
+  mask = torch.ones((32, 16), dtype=torch.bool)
+  with pytest.raises(ValueError, match="reads no dprop"):
+    kmod.ell_spmv(cols, cols.float(), mask, torch.ones(40, 1),
+                  torch.ones(40, dtype=torch.bool), process_op="msg",
+                  reduce_kind="add", dprop=torch.zeros(32, 1))
+  # The backend takes a destination property shaped as the message only.
+  n, src, dst, w = rmat_small
+  g = TG.build_ell(src, dst, w, n=n, device="cpu")
+  _, tprog = _cf_like_programs(lanewise=True)
+  msg = torch.rand(n, 4)
+  assert tbe.resolve(tbe.AUTO_PLAN, g, msg, msg[:, :1], tprog).name == (
+      "cuda_ell")
+  for bad in (msg[:, 0], msg[:, :3], msg.double(), {"p": msg, "q": msg}):
+    assert tbe.resolve(tbe.AUTO_PLAN, g, msg, bad, tprog).name == "ell"
+  with pytest.raises(ValueError, match="destination property"):
+    tspmv.spmv(g, msg, torch.ones(n, dtype=torch.bool), msg[:, 0], tprog,
+               backend=tbe.Plan(backend="cuda_ell"))
 
 
 def test_kernel_matches_plain_on_card():
@@ -231,3 +425,22 @@ def test_kernel_matches_plain_on_card():
                             process=kmod.plain_process(op), reduce_kind=kind)
       assert torch.isnan(yr).any()
       torch.testing.assert_close(y, yr, rtol=0, atol=0, equal_nan=True)
+  # The destination-reading form, Kd = 1 and Q, on degree-sorted prefix rows
+  # (several lane segments, no mask read).
+  lens = torch.randint(0, 41, (256,), generator=gen, device="cuda")
+  mask = torch.arange(40, device="cuda") < lens.sort(descending=True).values[:, None]
+  row_end = torch.from_numpy(TG.ell_extent(mask)[0]).cuda()
+  segments = kmod.row_segments(row_end)
+  assert segments.table.shape[0] > 1
+  for q in (1, 8):
+    msg = torch.randn((300, q), generator=gen, device="cuda")
+    for kd in sorted({1, q}):
+      dprop = torch.randn((256, kd), generator=gen, device="cuda")
+      y, r = kmod.ell_spmv(cols, vals.float(), mask, msg, act,
+                           process_op="edge_minus_msg_dst_times_msg",
+                           reduce_kind="add", dprop=dprop, row_end=row_end,
+                           mask_prefix=True, segments=segments)
+      yr, rr = ell_spmv_ref(cols, vals.float(), mask, msg, act, dprop,
+                            process=PLUS_DST, reduce_kind="add")
+      assert torch.equal(r, rr)
+      torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)

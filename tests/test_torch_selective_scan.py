@@ -8,7 +8,9 @@ package.
 * ``dt = 0`` (the state stays at 0) and a NaN in ``u``.
 * The wrapper takes the inputs the JAX kernel takes: ragged
   ``seq_chunk`` / ``c_tile`` are refused by both.
-* On a card only: the kernel against its plain version.
+* The lanes per channel the kernel runs, chosen from the shape.
+* On a card only: the kernel against its plain version, at shapes that run
+  each choice of lanes.
 
 Tolerance: the reference's own, rtol 2e-4 / atol 2e-5 (the kernel and the
 two plain versions sum the N products in different orders).
@@ -128,10 +130,45 @@ def test_kernel_matches_plain_on_card():
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
   rng = np.random.default_rng(5)
-  for shape in [(1, 16, 8, 4), (2, 100, 200, 16), (3, 64, 130, 5)]:
+  shapes = [(1, 16, 8, 4), (2, 100, 200, 16), (3, 64, 130, 5)] + [
+      shape for shape, _ in LANES_BY_SHAPE]
+  for shape in shapes:
     arrays = [x.cuda() for x in _torch(make_inputs(rng, *shape))]
     before = smod.launches
     y = smod.selective_scan(*arrays, seq_chunk=shape[1], c_tile=shape[2])
     assert smod.launches == before + 1
-    torch.testing.assert_close(y, selective_scan_ref(*arrays), rtol=RTOL,
-                               atol=ATOL)
+    want = selective_scan_ref(*arrays)
+    torch.testing.assert_close(y, want, rtol=RTOL, atol=ATOL)
+
+
+LANES_BY_SHAPE = [  # (B, S, C, N) -> lanes per channel
+    ((4, 8, 8192, 16), 2), ((2, 8, 8192, 16), 4), ((1, 8, 8192, 16), 8),
+    ((2, 8, 64, 16), 16)]
+
+
+@pytest.mark.parametrize("shape,lanes", LANES_BY_SHAPE)
+def test_lanes_for_shape(shape, lanes):
+  """The fewest lanes that give the grid 2^16 threads, 16 at most."""
+  b, _, c, _ = shape
+  assert smod.lanes_for(b, c) == lanes
+
+
+SCAN_CUDA_REFUSALS = {  # what -> (change to the inputs, message)
+    "cpu_tensors": (None, "CUDA device"),
+    "float64": (lambda xs: [xs[0].double()] + xs[1:], "float32"),
+    "strided": (lambda xs: [xs[0].transpose(1, 2).contiguous().transpose(1, 2)]
+                + xs[1:], "contiguous"),
+    "wide_state": (lambda xs: xs, "N=17"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(SCAN_CUDA_REFUSALS))
+def test_scan_cuda_refuses(what):
+  """The kernel's launcher refuses, before any build, what it cannot run."""
+  change, match = SCAN_CUDA_REFUSALS[what]
+  n = 17 if what == "wide_state" else 2
+  arrays = _torch(make_inputs(np.random.default_rng(6), 1, 8, 4, n))
+  if change is not None:
+    arrays = change(arrays)
+  with pytest.raises(ValueError, match=match):
+    smod.scan_cuda(*arrays)
