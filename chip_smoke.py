@@ -27,14 +27,24 @@ Phases, in order; any failure exits non-zero before the result line:
    and with every source active for PageRank (in turns with
    ``torch.sparse.mm``) and the gradient sweeps, and the kernel at four
    frontiers (all, 10% and all but one source active);
-5. free the graph, hold the selective-scan kernel against its plain version
+5. the paper's five algorithms and its Table 3: PageRank (20 sweeps), BFS
+   and SSSP through ``Plan("cuda_ell")`` on the phase-3 graph against the
+   native baselines on its edges (BFS and SSSP bitwise, PageRank at rtol
+   1e-4), ``Planner.autotune`` for PageRank (Q = 1) and BFS (Q = 8) on it;
+   then, with the graph freed, triangle counting (RMAT scale 16 with the
+   paper's TC parameters, DAG-oriented, ``Plan("coo")``; equal to the native
+   count and to a scipy count) and collaborative filtering at the Netflix
+   Prize's size (K = 16, 3 sweeps; its RMSE below the mean rating's, equal
+   to the native CF within ``CF_TOL``); each timed against its native
+   baseline in turns, and the five ratios beside the paper's;
+6. hold the selective-scan kernel against its plain version
    over the shapes of the reference's kernel test, shapes that run each
    choice of lanes per channel, and edge cases at the lanes of the prefill
    shape (ragged S and C, dt = 0, dt large enough that exp(dt·a) is 0, NaN
    in u, each at N = 4, 8 and 16; N = 5), and at the Falcon-Mamba-7B
    prefill shape [4, 2048, 8192, 16] and at [1, 2048, 8192, 16]; time it at
    both;
-6. serve Falcon-Mamba-7B (``ssm_impl="fused"``, bf16 compute, random
+7. serve Falcon-Mamba-7B (``ssm_impl="fused"``, bf16 compute, random
    float32 weights from a seeded generator on the card): 4 prompts of 2,048
    tokens through ``make_prefill`` (one kernel launch per layer), the same
    prompts cut to 32 tokens through the decode step and ``generate`` (16
@@ -136,14 +146,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 1) -> float:
   return statistics.median(means)
 
 
-def paired_ms(fn_a, fn_b, iters: int = 20, repeats: int = 5):
+def paired_ms(fn_a, fn_b, iters: int = 20, repeats: int = 5,
+              warmup: int = 3):
   """:func:`cuda_ms` of two functions timed in turns (a, b, a, b, ...):
   the median over ``repeats`` turns of each."""
   import statistics
   a, b = [], []
   for _ in range(repeats):
-    a.append(cuda_ms(fn_a, iters=iters))
-    b.append(cuda_ms(fn_b, iters=iters))
+    a.append(cuda_ms(fn_a, iters=iters, warmup=warmup))
+    b.append(cuda_ms(fn_b, iters=iters, warmup=warmup))
   return statistics.median(a), statistics.median(b)
 
 
@@ -599,7 +610,8 @@ def phase_slice(scale: int, num_queries: int, ell_mod):
               "bfs,Q=8": record_calls(serve_again)}
   stats["recorded_calls"] = {k: len(v) for k, v in recorded.items()}
   log(f"phase 3: recorded kernel calls {stats['recorded_calls']}")
-  return stats, g, recorded
+  edges = {"src": src, "dst": dst, "w": w, "root": root, "sources": sources}
+  return stats, g, recorded, edges
 
 
 def record_calls(fn) -> list:
@@ -804,10 +816,297 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the selective-scan kernel against plain, and its time
+# Phase 5: the paper's five algorithms and Table 3 on the card
 # ---------------------------------------------------------------------------
 
-FALCON_SCAN = (4, 2048, 8192, 16)  # B, S, d_inner, N of the phase-6 prefill
+# The paper's Table 3: GraphMat's time over native code's (none for SSSP).
+PAPER_TABLE3 = {"pagerank": 1.15, "bfs": 1.18, "sssp": None, "tc": 2.10,
+                "cf": 0.73}
+PAPER_GEOMEAN = 1.20
+# Triangle counting: RMAT with the paper's TC parameters, edge factor 16,
+# self-loops removed, DAG-oriented.  The reference's bitmap design gathers
+# [E, n/32] int32 words a COO phase, E·n/8 bytes a tensor: 8.5 GB at scale
+# 16 (1.04 M DAG edges) and about 34 GB at scale 17, where the phases' few
+# live tensors no longer fit.  So scale 16, the largest whose peak stays
+# under the limit.
+TC_SCALE = 16
+TC_PEAK_LIMIT_GIB = 60.0
+# Collaborative filtering at the Netflix Prize's size: users, items, ratings
+# drawn per user (before the generator drops repeated pairs); K as in
+# benchmarks/bench_algorithms.py.
+CF_SHAPE = (480_189, 17_770, 209)
+CF_K, CF_SWEEPS, CF_LAM = 16, 3, 0.05
+# The ratings are uniform random (no structure to learn), and gradient
+# descent with one step size is stable only below about 1/(the largest
+# degree x the mean rating): a popular item is rated by every user.  So the
+# factors start where every prediction is the mean rating (a 2% spread), the
+# step is that bound, and 3 sweeps can only fit the residual means: the RMSE
+# falls just below the mean rating's.  GraphMat's and the native CF differ
+# only in the order of their sums (atomics on the card), so they are held
+# to CF_TOL times the largest change the sweeps made to p (under 1% of p's
+# size, which a tolerance on p would not see).
+CF_INIT_SPREAD = 0.02
+CF_TOL = 1e-3
+
+
+# Whole runs of GraphMat and native are timed in 3 turns, each call after
+# one warm-up call.
+TURNS = {"iters": 1, "repeats": 3, "warmup": 1}
+
+
+def plan_name(plan) -> str:
+  extra = ",".join(f"{k}={v}" for k, v in plan.kernel_kwargs().items())
+  return plan.backend + (f"[{extra}]" if extra else "")
+
+
+def phase_suite_graph(g, edges: dict, ell_mod) -> dict:
+  """PageRank, BFS and SSSP: GraphMat through the kernel against the native
+  baselines on the phase-3 graph's edges; then the autotuned plans."""
+  import numpy as np
+  import torch
+  from repro_torch.algos import bfs, pagerank, sssp
+  from repro_torch.algos.multi import bfs_columns, multi_bfs_program
+  from repro_torch.algos.native import (native_bfs, native_pagerank,
+                                        native_sssp)
+  from repro_torch.algos.pagerank import init_prop, pagerank_program
+  from repro_torch.core.backends import Plan, Planner
+
+  kernel = Plan(backend="cuda_ell")
+  n, root = g.n, edges["root"]
+  src = torch.from_numpy(edges["src"].astype(np.int64)).cuda()
+  dst = torch.from_numpy(edges["dst"].astype(np.int64)).cuda()
+  w = torch.from_numpy(edges["w"]).cuda()
+  out_deg = torch.bincount(src, minlength=n).to(torch.float32)
+  runs = {
+      "pagerank": (lambda: pagerank(g, out_deg, num_iters=20, backend=kernel),
+                   lambda: native_pagerank(src, dst, out_deg, n, 20)),
+      "bfs": (lambda: bfs(g, root, n, backend=kernel),
+              lambda: native_bfs(src, dst, n, root)),
+      "sssp": (lambda: sssp(g, root, n, backend=kernel),
+               lambda: native_sssp(src, dst, w, n, root)),
+  }
+  ell_mod.launches.reset()
+  got = {algo: gm() for algo, (gm, _) in runs.items()}
+  torch.cuda.synchronize()
+  launches = dict(ell_mod.launches.by_config)
+  if ell_mod.launches.total == 0:
+    raise AssertionError("phase 5: GraphMat never launched the kernel")
+  out = {"launches": launches}
+  for algo, (gm, nat) in runs.items():
+    want = nat()
+    if algo == "pagerank":
+      torch.testing.assert_close(got[algo], want, rtol=1e-4, atol=0.0)
+    elif not torch.equal(got[algo], want):
+      raise AssertionError(f"phase 5: GraphMat {algo} != native {algo}")
+    err = float((got[algo].double() - want.double()).abs().max()) if (
+        algo == "pagerank") else 0.0
+    gm_ms, nat_ms = paired_ms(gm, nat, **TURNS)
+    out[algo] = {"graphmat_ms": gm_ms, "native_ms": nat_ms,
+                 "ratio": gm_ms / nat_ms, "max_abs_err": err}
+    log(f"phase 5: {algo} on RMAT-{int(np.log2(n))}: GraphMat (cuda_ell) "
+        f"{gm_ms:.3f} ms, native {nat_ms:.3f} ms, ratio "
+        f"{gm_ms / nat_ms:.3f} (paper {PAPER_TABLE3[algo]}); "
+        + ("equal bitwise" if algo != "pagerank"
+           else f"max abs err {err:.3g} at rtol 1e-4"))
+  del got
+  log(f"phase 5: kernel launches of GraphMat's PageRank, BFS and SSSP "
+      f"{launches}")
+
+  # Measured planning on the same graph: PageRank (Q = 1) and BFS at Q = 8.
+  planner = Planner()
+  tuned = {}
+  pr_prog, bfs_prog = pagerank_program(), multi_bfs_program()
+  every = torch.ones((n,), dtype=torch.bool, device="cuda")
+  dist0, active0 = bfs_columns(
+      torch.as_tensor(edges["sources"][:8], device="cuda"), n)
+  for name, prog, prop, active, q in (
+      ("pagerank,Q=1", pr_prog, init_prop(out_deg), every, 1),
+      ("bfs,Q=8", bfs_prog, dist0, active0, 8)):
+    t0 = time.perf_counter()
+    best = planner.autotune(g, prog, prop, active, num_iters=2, repeats=3)
+    seconds = time.perf_counter() - t0
+    (measured,) = [v for k, v in planner.timings.items() if k[1:] == (
+        prog.name, q)]
+    table = {plan_name(p): (None if t is None else t * 1e3)
+             for p, t in measured}
+    heuristic = planner.plan(g, prog, q)
+    tuned[name] = {"ms_per_2_supersteps": table, "winner": plan_name(best),
+                   "heuristic": plan_name(heuristic), "seconds": seconds}
+    log(f"phase 5: autotune {name} (2 supersteps, median of 3, ms): "
+        + ", ".join(f"{k} {'skipped' if v is None else f'{v:.3f}'}"
+                    for k, v in table.items())
+        + f"; winner {plan_name(best)}; Planner.plan picks "
+        f"{plan_name(heuristic)} ({seconds:.1f} s)")
+  out["autotune"] = tuned
+  return out
+
+
+def scipy_triangles(src, dst, n: int, chunk: int = 4096) -> int:
+  """Independent host count on the DAG's CSR A: Σ over row chunks R of
+  (A[R] @ A) ∘ A[R]; chunks keep the product within host memory, since the
+  hubs make A @ A dense in places."""
+  import numpy as np
+  import scipy.sparse as sp
+  a = sp.csr_matrix((np.ones(src.shape[0], np.int64), (src, dst)),
+                    shape=(n, n))
+  return int(sum(int((a[lo:lo + chunk] @ a).multiply(a[lo:lo + chunk]).sum())
+                 for lo in range(0, n, chunk)))
+
+
+def phase_suite_tc_cf(seed: int = 11) -> dict:
+  """Triangle counting and collaborative filtering, GraphMat against the
+  native baselines and an independent check each."""
+  import numpy as np
+  import torch
+  from repro_torch.algos import collaborative_filtering, triangle_count
+  from repro_torch.algos.collab_filter import build_bipartite
+  from repro_torch.algos.native import native_cf, native_tc
+  from repro_torch.core.backends import Plan
+  from repro_torch.core.graph import build_coo
+  from repro_torch.graphs import (bipartite_ratings, dag_orient,
+                                  remove_self_loops, rmat_edges)
+  from repro_torch.graphs.rmat import RMAT_TC
+
+  coo = Plan(backend="coo")
+  out = {}
+  t0 = time.perf_counter()
+  ts, td = remove_self_loops(*rmat_edges(TC_SCALE, 16, RMAT_TC, seed=seed))
+  ts, td = dag_orient(ts, td)
+  n = 1 << TC_SCALE
+  fwd, rev = build_coo(ts, td, n=n), build_coo(td, ts, n=n)
+  src = torch.from_numpy(ts.astype(np.int64)).cuda()
+  dst = torch.from_numpy(td.astype(np.int64)).cuda()
+  t_build = time.perf_counter() - t0
+  gib = 2.0**30
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  got = int(triangle_count(fwd, rev, n, backend=coo))
+  peak_gm = torch.cuda.max_memory_allocated() / gib
+  torch.cuda.reset_peak_memory_stats()
+  nat = int(native_tc(src, dst, n))
+  peak_nat = torch.cuda.max_memory_allocated() / gib
+  t0 = time.perf_counter()
+  host = scipy_triangles(ts, td, n)
+  t_host = time.perf_counter() - t0
+  log(f"phase 5: TC on RMAT-{TC_SCALE} (abc {RMAT_TC}, {ts.shape[0]:,} DAG "
+      f"edges, built in {t_build:.1f} s): GraphMat {got:,}, native {nat:,}, "
+      f"scipy {host:,} ({t_host:.1f} s); peak device memory GraphMat "
+      f"{peak_gm:.2f} GiB, native {peak_nat:.2f} GiB")
+  if not got == nat == host:
+    raise AssertionError("phase 5: triangle counts disagree")
+  if peak_gm > TC_PEAK_LIMIT_GIB:
+    raise AssertionError(f"phase 5: TC peak {peak_gm:.2f} GiB is over "
+                         f"{TC_PEAK_LIMIT_GIB} GiB")
+  gm_ms, nat_ms = paired_ms(
+      lambda: triangle_count(fwd, rev, n, backend=coo),
+      lambda: native_tc(src, dst, n), **TURNS)
+  out["tc"] = {"scale": TC_SCALE, "n": n, "dag_edges": int(ts.shape[0]),
+               "triangles": got, "peak_gib": peak_gm,
+               "native_peak_gib": peak_nat, "graphmat_ms": gm_ms,
+               "native_ms": nat_ms, "ratio": gm_ms / nat_ms,
+               "scipy_s": t_host, "build_s": t_build}
+  log(f"phase 5: TC GraphMat (coo) {gm_ms:.3f} ms, native {nat_ms:.3f} ms, "
+      f"ratio {gm_ms / nat_ms:.3f} (paper {PAPER_TABLE3['tc']})")
+  out["tc"]["profile"] = device_busy(
+      lambda: triangle_count(fwd, rev, n, backend=coo))
+  out["tc"]["native_profile"] = device_busy(lambda: native_tc(src, dst, n))
+  log(busy_line("phase 5: TC GraphMat", out["tc"]["profile"]))
+  log(busy_line("phase 5: TC native", out["tc"]["native_profile"]))
+  del fwd, rev, src, dst
+  torch.cuda.empty_cache()
+
+  # Collaborative filtering at the Netflix Prize's size.
+  nu, ni, per_user = CF_SHAPE
+  t0 = time.perf_counter()
+  users, items, ratings = bipartite_ratings(nu, ni, per_user, seed=seed)
+  g2u, g2i, ncf = build_bipartite(users, items, ratings, nu, ni)
+  u = torch.from_numpy(users.astype(np.int64)).cuda()
+  i = torch.from_numpy(items.astype(np.int64)).cuda() + nu
+  r = torch.from_numpy(ratings).cuda()
+  torch.cuda.synchronize()
+  t_build = time.perf_counter() - t0
+  mean = float(ratings.mean(dtype=np.float64))
+  max_deg = int(max(np.bincount(users).max(), np.bincount(items).max()))
+  gamma = 1.0 / (max_deg * mean)
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  p0 = (mean / CF_K) ** 0.5 * (1.0 + CF_INIT_SPREAD * (
+      torch.rand((ncf, CF_K), generator=gen, device="cuda") - 0.5))
+
+  def rmse(p):
+    pred = (p[u] * p[i]).sum(dim=-1)
+    return float((pred.double() - r.double()).pow(2).mean().sqrt())
+
+  def gm():
+    return collaborative_filtering(g2u, g2i, ncf, CF_K, num_iters=CF_SWEEPS,
+                                   gamma=gamma, lam=CF_LAM, p0=p0, backend=coo)
+
+  def nat():
+    return native_cf(u, i, r, ncf, CF_K, CF_SWEEPS, gamma, CF_LAM, p0=p0)
+
+  torch.cuda.reset_peak_memory_stats()
+  p_gm = gm()
+  peak_gm = torch.cuda.max_memory_allocated() / gib
+  p_nat, p_nat2 = nat(), nat()
+  base = float((r.double() - mean).pow(2).mean().sqrt())
+  init, got_rmse, nat_rmse = rmse(p0), rmse(p_gm), rmse(p_nat)
+  change = float((p_nat - p0).abs().max())
+  err = float((p_gm - p_nat).abs().max())
+  noise = float((p_nat2 - p_nat).abs().max())
+  scale = float(p_nat.abs().max())
+  log(f"phase 5: CF on {len(users):,} ratings ({nu:,} users, {ni:,} items, "
+      f"{per_user} drawn a user, built in {t_build:.1f} s), K={CF_K}, "
+      f"{CF_SWEEPS} sweeps, gamma {gamma:.4g}: RMSE {init:.6f} -> GraphMat "
+      f"{got_rmse:.6f}, native {nat_rmse:.6f}; the mean rating's {base:.6f}; "
+      f"max|GraphMat - native| {err:.3g} (native run to run {noise:.3g}; "
+      f"max change {change:.3g}, max|p| {scale:.3g}); peak device memory "
+      f"{peak_gm:.2f} GiB")
+  if not (np.isfinite(got_rmse) and got_rmse < base and got_rmse < init):
+    raise AssertionError("phase 5: CF's RMSE did not fall below the mean "
+                         "rating's")
+  if not err <= CF_TOL * change:
+    raise AssertionError(f"phase 5: GraphMat CF != native CF ({err:.3g} > "
+                         f"{CF_TOL} x {change:.3g})")
+  del p_gm, p_nat, p_nat2
+  gm_ms, nat_ms = paired_ms(gm, nat, **TURNS)
+  out["cf"] = {"users": nu, "items": ni, "drawn_per_user": per_user,
+               "ratings": int(len(users)), "k": CF_K, "sweeps": CF_SWEEPS,
+               "gamma": gamma, "rmse_init": init, "rmse": got_rmse,
+               "rmse_native": nat_rmse, "rmse_mean_rating": base,
+               "max_abs_err": err, "native_run_to_run": noise,
+               "max_change": change, "max_abs_p": scale,
+               "peak_gib": peak_gm, "graphmat_ms": gm_ms,
+               "native_ms": nat_ms, "ratio": gm_ms / nat_ms,
+               "build_s": t_build}
+  log(f"phase 5: CF GraphMat (coo) {gm_ms:.3f} ms, native {nat_ms:.3f} ms "
+      f"for {CF_SWEEPS} sweeps, ratio {gm_ms / nat_ms:.3f} (paper "
+      f"{PAPER_TABLE3['cf']})")
+  out["cf"]["profile"] = device_busy(gm)
+  out["cf"]["native_profile"] = device_busy(nat)
+  log(busy_line("phase 5: CF GraphMat", out["cf"]["profile"]))
+  log(busy_line("phase 5: CF native", out["cf"]["native_profile"]))
+  return out
+
+
+def table3(suite: dict) -> dict:
+  """The five graphmat/native ratios, their geomean, and the geomean of the
+  four the paper has, beside the paper's."""
+  import math
+  ratios = {a: suite[a]["ratio"] for a in PAPER_TABLE3}
+
+  def geomean(vals):
+    return math.exp(sum(math.log(v) for v in vals) / len(vals))
+  paper_four = [a for a, v in PAPER_TABLE3.items() if v is not None]
+  return {"ratios": ratios, "paper": PAPER_TABLE3,
+          "geomean": geomean(ratios.values()),
+          "geomean_paper_four": geomean([ratios[a] for a in paper_four]),
+          "paper_geomean": PAPER_GEOMEAN}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the selective-scan kernel against plain, and its time
+# ---------------------------------------------------------------------------
+
+FALCON_SCAN = (4, 2048, 8192, 16)  # B, S, d_inner, N of the phase-7 prefill
 
 
 def scan_inputs(gen, b, s, c, n):
@@ -908,7 +1207,7 @@ def phase_scan(ss_mod, ref_fn) -> dict:
     max_err = max(max_err, compare_scan(y, yr, 2e-5, what))
   if lanes_run != set(ss_mod.LANE_CHOICES):
     raise AssertionError(f"the sweep ran lanes {sorted(lanes_run)} only")
-  log(f"phase 5: scan kernel == plain on {len(cases)} cases, lanes "
+  log(f"phase 6: scan kernel == plain on {len(cases)} cases, lanes "
       f"{sorted(lanes_run)}, edge cases at {chosen} (max abs err "
       f"{max_err:.3g})")
 
@@ -934,20 +1233,20 @@ def phase_scan(ss_mod, ref_fn) -> dict:
     else:
       out["b1"] = {"ms": kernel_ms, "max_abs_err": err, "max_abs_y": scale,
                    "lanes": lanes, "bound": bound}
-    log(f"phase 5: {shape}, lanes {lanes}: {kernel_ms:.4f} ms, max|y| "
+    log(f"phase 6: {shape}, lanes {lanes}: {kernel_ms:.4f} ms, max|y| "
         f"{scale:.3g}, max abs err {err:.3g}, bound {bound['bound_ms']:.4f} "
         f"ms ({bound['bound_by']}; bytes {bound['bytes_ms']:.4f}, f32 ops "
         f"{bound['f32_ops_ms']:.4f}, exp at the SFU rate "
         f"{bound['sfu_exp_ms']:.4f})")
     del args, yr
     torch.cuda.empty_cache()
-  log(f"phase 5: selective_scan at {FALCON_SCAN}: {out['ms']:.4f} ms, plain "
+  log(f"phase 6: selective_scan at {FALCON_SCAN}: {out['ms']:.4f} ms, plain "
       f"{out['plain_ms']:.2f} ms, max abs err {out['full_width_max_abs_err']:.3g}")
   return out
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the LM serving slice at full width
+# Phase 7: the LM serving slice at full width
 # ---------------------------------------------------------------------------
 
 
@@ -969,7 +1268,7 @@ def phase_lm(ss_mod, seed: int = 0) -> dict:
   torch.cuda.synchronize()
   t_init = time.perf_counter() - t0
   n_params = num_params(model.defs())
-  log(f"phase 6: {cfg.name} ({cfg.num_layers} layers, {n_params:,} params, "
+  log(f"phase 7: {cfg.name} ({cfg.num_layers} layers, {n_params:,} params, "
       f"{n_params * 4 / 2**30:.2f} GiB f32) initialized in {t_init:.3f} s")
 
   b, s = 4, 2048
@@ -992,7 +1291,7 @@ def phase_lm(ss_mod, seed: int = 0) -> dict:
   del logits
   prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), iters=3,
                        warmup=1)
-  log(f"phase 6: prefill {b}x{s} tokens: {launches} scan launches, finite "
+  log(f"phase 7: prefill {b}x{s} tokens: {launches} scan launches, finite "
       f"logits; first call {t_first:.3f} s, then {prefill_ms:.2f} ms "
       f"(CUDA events)")
 
@@ -1023,9 +1322,9 @@ def phase_lm(ss_mod, seed: int = 0) -> dict:
   if ss_mod.launches != 0:
     raise AssertionError("the decode path launched the scan kernel")
   busy_prefill = device_busy(lambda: prefill(params, {"tokens": tokens}))
-  log(busy_line(f"phase 6: prefill {b}x{s}", busy_prefill))
+  log(busy_line(f"phase 7: prefill {b}x{s}", busy_prefill))
   busy_decode = device_busy(lambda: step(params, short[:, :1], cache, p))
-  log(busy_line(f"phase 6: decode step B={b}", busy_decode))
+  log(busy_line(f"phase 7: decode step B={b}", busy_decode))
   if out.shape != (b, p + new) or not torch.equal(out[:, :p], short):
     raise AssertionError(f"generate returned {tuple(out.shape)}")
   if not ((out >= 0) & (out < vocab)).all():
@@ -1034,7 +1333,7 @@ def phase_lm(ss_mod, seed: int = 0) -> dict:
     raise AssertionError("decode logits are not finite")
   scale = float(pre_last.abs().max())
   err = float((pre_last - dec_last).abs().max())
-  log(f"phase 6: prefill vs decode logits after {p} tokens: max abs err "
+  log(f"phase 7: prefill vs decode logits after {p} tokens: max abs err "
       f"{err:.4g}, max|logit| {scale:.4g} ({err / scale:.4g} of it; "
       f"tolerance {PREFILL_DECODE_TOL})")
   if err > PREFILL_DECODE_TOL * scale:
@@ -1045,7 +1344,7 @@ def phase_lm(ss_mod, seed: int = 0) -> dict:
   if not agree[sure].all():
     raise AssertionError("prefill argmax != first generated token where the "
                          "top-2 margin exceeds twice the error")
-  log(f"phase 6: decode step {decode_ms:.2f} ms at B={b}; generate: "
+  log(f"phase 7: decode step {decode_ms:.2f} ms at B={b}; generate: "
       f"{new} tokens; prefill argmax == first generated token for "
       f"{int(agree.sum())}/{b} prompts ({int(sure.sum())} with a top-2 margin "
       f"above twice the error)")
@@ -1067,7 +1366,7 @@ def phase_lm(ss_mod, seed: int = 0) -> dict:
   top2 = torch.topk(pre32, 2, dim=-1).values
   sure32 = (top2[:, 0] - top2[:, 1]) > 2 * err32
   agree32 = pre32.argmax(-1) == dec32.argmax(-1)
-  log(f"phase 6: f32 compute, prefill vs decode logits after {p} tokens: "
+  log(f"phase 7: f32 compute, prefill vs decode logits after {p} tokens: "
       f"max abs err {err32:.4g}, max|logit| {scale32:.4g} "
       f"({err32 / scale32:.4g} of it; tolerance {PREFILL_DECODE_F32_TOL}); "
       f"argmax equal for {int(agree32.sum())}/{b} ({int(sure32.sum())} "
@@ -1094,13 +1393,13 @@ def phase_lm(ss_mod, seed: int = 0) -> dict:
   la = la.float()
   fa_scale = float(la.abs().max())
   fa_err = float((lf - la).abs().max())
-  log(f"phase 6: forward fused vs assoc (2 layers, 1x512): max abs err "
+  log(f"phase 7: forward fused vs assoc (2 layers, 1x512): max abs err "
       f"{fa_err:.4g}, max|logit| {fa_scale:.4g} ({fa_err / fa_scale:.4g} of "
       f"it; tolerance {FUSED_ASSOC_TOL})")
   if not (torch.isfinite(lf).all() and fa_err <= FUSED_ASSOC_TOL * fa_scale):
     raise AssertionError("fused and assoc forward disagree")
   peak_gib = torch.cuda.max_memory_allocated() / 2**30
-  log(f"phase 6: weight cast f32->bf16 {cast_ms:.2f} ms per forward or "
+  log(f"phase 7: weight cast f32->bf16 {cast_ms:.2f} ms per forward or "
       f"step; peak device memory {peak_gib:.2f} GiB")
   return {"config": cfg.name, "num_layers": cfg.num_layers,
           "params": n_params, "init_s": t_init, "prefill_batch": [b, s],
@@ -1158,16 +1457,25 @@ def main(argv=None) -> int:
   log(f"phase 1: both builds took {time.perf_counter() - t0:.2f} s")
 
   sweep = phase_kernel_sweep(ell_mod, ref_mod)
-  slice_stats, g, recorded = phase_slice(args.scale, 32, ell_mod)
+  slice_stats, g, recorded, edges = phase_slice(args.scale, 32, ell_mod)
   entries, array_bounds, split, by_frontier = phase_timing(
       g, ell_mod, ref_mod, slice_stats["launches"], recorded)
-  del g, recorded  # the graph phases' tensors, before phase 6's 27 GiB
+  suite = phase_suite_graph(g, edges, ell_mod)
+  del g, recorded, edges  # the graph phases' tensors, before TC's bitmaps
+  torch.cuda.empty_cache()
+  suite.update(phase_suite_tc_cf())
+  suite["table3"] = t3 = table3(suite)
+  log("phase 5: Table 3 on the card, graphmat/native: " + ", ".join(
+      f"{a} {v:.3f} (paper {PAPER_TABLE3[a]})" for a, v in t3["ratios"].items())
+      + f"; geomean {t3['geomean']:.3f} over five, "
+      f"{t3['geomean_paper_four']:.3f} over the paper's four (paper "
+      f"{PAPER_GEOMEAN})")
   torch.cuda.empty_cache()
   scan = phase_scan(ss_mod, selective_scan_ref)
   lm = phase_lm(ss_mod)
   lm["scan_share_of_prefill"] = (lm["scan_launches_per_prefill"] * scan["ms"]
                                  / lm["prefill_ms"])
-  log(f"phase 6: {lm['scan_launches_per_prefill']} scan launches x "
+  log(f"phase 7: {lm['scan_launches_per_prefill']} scan launches x "
       f"{scan['ms']:.4f} ms = {lm['scan_share_of_prefill']:.4f} of the "
       f"{lm['prefill_ms']:.2f} ms prefill")
   b, s, _, _ = FALCON_SCAN
@@ -1185,7 +1493,8 @@ def main(argv=None) -> int:
   (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
       "card": card, "build": builds, "sweep": sweep, "slice": slice_stats,
       "kernels": entries, "ell_array_bound_ms": array_bounds,
-      "ell_ms_by_frontier": by_frontier, "superstep_split": split, "scan": scan, "lm": lm}, indent=1))
+      "ell_ms_by_frontier": by_frontier, "superstep_split": split,
+      "suite": suite, "scan": scan, "lm": lm}, indent=1))
   log(card)
   print(json.dumps({"kernels": entries}), flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""The paper's traversal and ranking algorithms as vertex programs (port of
-:mod:`repro.algos`; triangle counting and collaborative filtering are not
-ported yet)."""
+"""The paper's five algorithms (Section 3) as GraphMat vertex programs (port
+of :mod:`repro.algos`), and their multi-query forms."""
 
 from repro_torch.algos.pagerank import pagerank, pagerank_program  # noqa: F401
 from repro_torch.algos.bfs import bfs, bfs_program  # noqa: F401
 from repro_torch.algos.sssp import sssp, sssp_program  # noqa: F401
+from repro_torch.algos.triangle_count import triangle_count  # noqa: F401
+from repro_torch.algos.collab_filter import (  # noqa: F401
+    collaborative_filtering)
 from repro_torch.algos.multi import (multi_bfs, multi_sssp,  # noqa: F401
                                      personalized_pagerank)

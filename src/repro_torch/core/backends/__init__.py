@@ -6,7 +6,8 @@
 * :class:`Backend` + registry — built-ins: dense, coo, coo_tiled, ell and
   cuda_ell (the hand-written Hopper kernel, where the JAX package has its
   Pallas kernel).
-* :class:`Planner` — graph statistics -> plan heuristics.
+* :class:`Planner` — graph statistics -> plan heuristics, and measured
+  planning (``candidates``, ``autotune``).
 """
 
 from repro_torch.core.backends.plan import (  # noqa: F401

@@ -10,17 +10,29 @@
   CooGraph    otherwise                                     coo
 
 with T = clamp(nnz / tile_edges, 2, max_tiles).  ``cuda_ell`` stands where
-the reference plans ``pallas``.  The measured planning of the reference
-(``candidates`` and ``autotune``) is not ported yet.
+the reference plans ``pallas``.
+
+Measured planning, as in the reference: :meth:`Planner.candidates` lists
+the plans worth timing (for ``cuda_ell``: the kernel's default launch, other
+warps per block and, for Q > 1, other query tiles), and
+:meth:`Planner.autotune` times each on a short real run (CUDA-synchronized
+on the card) and memoizes the winner by graph fingerprint.  A candidate is
+skipped only for the port's own eligibility errors (``ValueError``,
+``NotImplementedError``), raised before anything launches; a launch or
+CUDA error propagates, since a faulted launch leaves the context unusable.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import statistics
 import threading
-from typing import Dict, Hashable, Optional
+import time
+from typing import (Any, Callable, Dict, Hashable, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
+import torch
 
 from repro_torch.core import graph as graphlib
 from repro_torch.core.backends.plan import Plan
@@ -28,6 +40,11 @@ from repro_torch.core.vertex_program import GraphProgram
 
 _FAST_KINDS = ("add", "min", "max", "any", "all")
 _KERNEL_KINDS = ("add", "min", "max")
+# The ELL kernel's launch shapes worth timing beside its default (8 warps a
+# block; a query tile of the largest divisor of Q up to 8): the warps a
+# block in 1..32, the query tiles among Q's divisors up to 8.
+_KERNEL_BLOCK_ROWS = (4, 16)
+_KERNEL_MAX_QUERY_TILE = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,7 +143,7 @@ class PlanCache:
 
 @dataclasses.dataclass
 class Planner:
-  """Picks execution plans from graph statistics.
+  """Picks execution plans from graph statistics (or by measurement).
 
   Attributes:
     skew_threshold: hub ratio (max/mean in-degree) above which the
@@ -135,7 +152,10 @@ class Planner:
     max_tiles: edge-tile cap.
     ell_efficiency_floor: minimum ELL slot fill for the kernel to beat the
       torch ELL path (below it the kernel mostly reduces padding).
-    cache: plan memo, keyed by graph fingerprint.
+    cache: memo of :meth:`autotune` winners, keyed by graph fingerprint.
+    timings: each :meth:`autotune` measurement under its cache key: the
+      candidates in order, with the median seconds of each, or None for
+      one skipped as ineligible.
   """
 
   skew_threshold: float = 4.0
@@ -143,6 +163,8 @@ class Planner:
   max_tiles: int = 64
   ell_efficiency_floor: float = 0.25
   cache: PlanCache = dataclasses.field(default_factory=PlanCache)
+  timings: Dict[Hashable, List[Tuple[Plan, Optional[float]]]] = (
+      dataclasses.field(default_factory=dict))
 
   def stats(self, graph) -> GraphStats:
     return compute_stats(graph)
@@ -165,3 +187,87 @@ class Planner:
     if fast and stats.hub_ratio >= self.skew_threshold:
       return Plan(backend="coo_tiled", num_tiles=self._coo_tiles(stats))
     return Plan(backend="coo")
+
+  def candidates(self, graph, program: Optional[GraphProgram] = None,
+                 q: int = 1) -> List[Plan]:
+    """Candidate plans worth timing for this (graph, program, Q)."""
+    stats = self.stats(graph)
+    if stats.container == "dense":
+      return [Plan(backend="dense")]
+    if stats.container == "ell":
+      out = [Plan(backend="ell")]
+      if _kernel_shape_ok(program):
+        out.append(Plan(backend="cuda_ell"))
+        out += [Plan(backend="cuda_ell", block_rows=br)
+                for br in _KERNEL_BLOCK_ROWS]
+        if q > 1:
+          tiles = [bq for bq in range(1, min(q, _KERNEL_MAX_QUERY_TILE) + 1)
+                   if q % bq == 0]
+          out += [Plan(backend="cuda_ell", block_queries=bq)
+                  for bq in tiles[:-1]]  # the largest is the default
+      return out
+    out = [Plan(backend="coo")]
+    if program is None or program.reduce_kind in _FAST_KINDS:
+      t = self._coo_tiles(stats)
+      for nt in sorted({t, max(2, t // 4), min(self.max_tiles, t * 4)}):
+        out.append(Plan(backend="coo_tiled", num_tiles=nt))
+    return out
+
+  def autotune(self, graph, program: GraphProgram, init_prop: Any,
+               init_active: torch.Tensor, *, num_iters: int = 2,
+               candidates: Optional[Sequence[Plan]] = None,
+               repeats: int = 3,
+               timer: Callable[[], float] = time.perf_counter) -> Plan:
+    """Time candidate plans on a real (short) run; memoize the winner.
+
+    ``init_prop``/``init_active`` seed the measured supersteps: ``bool[n]``
+    runs ``run_fixed_iters``, ``bool[n, Q]`` runs ``run_batched``.  Each
+    candidate runs once to warm up, then ``repeats`` times under ``timer``
+    (with ``torch.cuda.synchronize()`` on both sides on the card); its
+    time is the median.  Winners are memoized in :attr:`cache` under
+    ``(graph fingerprint, program name, Q)``, so identical graph snapshots
+    (content hash, not object identity) re-plan for free, and the
+    measurements are kept in :attr:`timings` under the same key.
+    """
+    from repro_torch.service.cache import graph_fingerprint  # lazy: layering
+    batched = init_active.ndim == 2
+    q = int(init_active.shape[1]) if batched else 1
+    key = (graph_fingerprint(graph), program.name, q)
+    hit = self.cache.get(key)
+    if hit is not None:
+      return hit
+
+    from repro_torch.core import engine  # lazy: engine imports this package
+    cands = list(candidates) if candidates is not None else self.candidates(
+        graph, program, q)
+    on_card = init_active.device.type == "cuda"
+
+    def run(plan: Plan):
+      if batched:
+        engine.run_batched(graph, program, init_prop, init_active,
+                           max_iters=num_iters, backend=plan)
+      else:
+        engine.run_fixed_iters(graph, program, init_prop, init_active,
+                               num_iters, backend=plan)
+      if on_card:
+        torch.cuda.synchronize()
+
+    measured: List[Tuple[Plan, Optional[float]]] = []
+    for plan in cands:
+      try:
+        run(plan)  # warm-up; ineligible plans refuse here, before a launch
+      except (ValueError, NotImplementedError):
+        measured.append((plan, None))
+        continue
+      times = []
+      for _ in range(repeats):
+        t0 = timer()
+        run(plan)
+        times.append(timer() - t0)
+      measured.append((plan, statistics.median(times)))
+    timed = [(t, i) for i, (_, t) in enumerate(measured) if t is not None]
+    best = (measured[min(timed)[1]][0] if timed
+            else self.plan(graph, program, q))
+    self.timings[key] = measured
+    self.cache.put(key, best)
+    return best

@@ -12,8 +12,9 @@ from typing import Any, Callable
 
 import torch
 
-# Reduction kinds with scatter fast paths.  ``generic`` needs a segmented
-# scan, which the port does not have yet (see spmv._segment_reduce_scan).
+# Reduction kinds: the first five have scatter fast paths; ``generic`` (a
+# program's own ``reduce``) runs as spmv._axis_tree_reduce /
+# spmv._segment_reduce_scan.
 REDUCE_KINDS = ("add", "min", "max", "any", "all", "generic")
 
 

@@ -10,17 +10,20 @@ contribute the reduce identity.
 Backends:
   * ``spmv_dense``     — O(n²) masked oracle for tests.
   * ``spmv_coo``       — gather + ``scatter_reduce_`` over the dst-sorted
-                         edge list.
-  * ``spmv_coo_tiled`` — the same, one equal-size edge tile at a time.
+                         edge list (a segmented scan for generic monoids).
+  * ``spmv_coo_tiled`` — the same, one equal-size edge tile at a time
+                         (scatter-fast monoids only).
   * ``spmv_ell``       — degree-sorted ELL rows: gather + axis-1 reduce, hub
                          spill edges folded in through ``spmv_coo``.
 
 The hand-written CUDA kernel for the ELL rows is reached through the
 ``cuda_ell`` backend (:mod:`repro_torch.kernels.ops`).
 
-Reductions: add/min/max/any/all run as scatter fast paths.  The ``generic``
-reduce (an arbitrary monoid, used only by triangle counting) needs a
-segmented scan that is not ported yet and raises ``NotImplementedError``.
+Reductions: add/min/max/any/all run as scatter (COO) or axis (dense, ELL)
+fast paths.  The ``generic`` reduce (an arbitrary monoid given as a pytree
+function, as triangle counting's bitwise-or) runs as a halving tree over
+the slot axis (dense, ELL) and as a log-step segmented inclusive scan over
+the dst-sorted edges (COO), as the reference does.
 """
 
 from __future__ import annotations
@@ -72,12 +75,6 @@ def _edge_values(e: torch.Tensor, msg: PyTree, batch_dims: int
   return e.reshape(e.shape + (1,) * payload)
 
 
-def _no_generic(program: GraphProgram):
-  return NotImplementedError(
-      f"program {program.name!r}: the generic reduce (segmented scan) is not "
-      "ported yet; see ROADMAP.md Queue 1, triangle counting")
-
-
 def _axis_reduce(x: torch.Tensor, kind: str, dim: int) -> torch.Tensor:
   if kind == "add":
     return x.sum(dim=dim, dtype=x.dtype)
@@ -88,6 +85,36 @@ def _axis_reduce(x: torch.Tensor, kind: str, dim: int) -> torch.Tensor:
   if kind == "any":
     return x.any(dim=dim)
   return x.all(dim=dim)
+
+
+def _axis_tree_reduce(tree: PyTree, red, idents: PyTree, dim: int) -> PyTree:
+  """Reduce ``dim`` with a pytree-level binary monoid ``red``: pad the axis
+  with the identities (Python scalars) to a power of two, then halve it
+  log₂ times (the reference's ``_axis_tree_reduce``)."""
+  size = _tree.tree_leaves(tree)[0].shape[dim]
+  pow2 = 1
+  while pow2 < size:
+    pow2 *= 2
+  if pow2 != size:
+    def pad(x, i):
+      shape = list(x.shape)
+      shape[dim] = pow2 - size
+      return torch.cat(
+          [x, torch.full(shape, i, dtype=x.dtype, device=x.device)], dim=dim)
+    tree = _tree.tree_map(pad, tree, idents)
+  while pow2 > 1:
+    pow2 //= 2
+    tree = red(_tree.tree_map(lambda x: x.narrow(dim, 0, pow2), tree),
+               _tree.tree_map(lambda x: x.narrow(dim, pow2, pow2), tree))
+  return _tree.tree_map(lambda x: x.squeeze(dim), tree)
+
+
+def _reduce_rows(r: PyTree, program: GraphProgram, dim: int) -> PyTree:
+  """The reduce over axis ``dim`` of identity-masked ``r``."""
+  if program.reduce_kind in _SCATTER_FAST:
+    return _tree.tree_map(
+        lambda x: _axis_reduce(x, program.reduce_kind, dim), r)
+  return _axis_tree_reduce(r, program.reduce_fn(), _idents(program, r), dim)
 
 
 def mask_inert(msg: PyTree, active: torch.Tensor,
@@ -121,11 +148,8 @@ def spmv_dense(adj_vals: torch.Tensor, adj_struct: torch.Tensor, msg: PyTree,
       lambda x: x[:, None].expand((x.shape[0], n) + x.shape[1:]), dst_prop)
   r = program.process_message(msg_b, _edge_values(adj_vals, msg_b, 2), prop_b)
   valid = adj_struct & active[None, :]
-  if program.reduce_kind not in _SCATTER_FAST:
-    raise _no_generic(program)
   r = _tree_where(valid, r, _idents(program, r))
-  y = _tree.tree_map(lambda x: _axis_reduce(x, program.reduce_kind, 1), r)
-  return y, valid.any(dim=1)
+  return _reduce_rows(r, program, 1), valid.any(dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -173,17 +197,57 @@ def _empty_out(program: GraphProgram, r: PyTree, n: int) -> PyTree:
                               device=x.device), r, _idents(program, r))
 
 
+def _segment_reduce_scan(r: PyTree, dst: torch.Tensor, n: int, red,
+                         idents: PyTree) -> PyTree:
+  """Segment totals of a generic monoid over dst-sorted edges.
+
+  A log-step (Hillis–Steele) segmented inclusive scan: the carry is (start
+  flag, value); at step ``s`` each edge combines with the edge ``s`` places
+  before it unless a segment starts between them (its flag is set), and
+  the flags OR together.  After ⌈log₂ E⌉ steps each segment's last edge
+  holds the segment's total, which is written into ``y[dst]``.  Each step
+  is whole-tensor work on the ``[E, ...]`` leaves, with no host read.
+  ``r``'s leaves are overwritten (the caller's fresh, identity-masked
+  values).  Requires ``dst`` non-decreasing, as ``coo_arrays`` sorts it.
+  """
+  e = dst.shape[0]
+  flags = torch.ones((e,), dtype=torch.bool, device=dst.device)
+  flags[1:] = dst[1:] != dst[:-1]
+  s = 1
+  while s < e:
+    comb = red(_tree.tree_map(lambda x: x[:-s], r),
+               _tree.tree_map(lambda x: x[s:], r))
+    later = flags[s:]
+    for x, c in zip(_tree.tree_leaves(r), _tree.tree_leaves(comb)):
+      x[s:] = torch.where(_bcast_mask(later, c), x[s:], c)
+    del comb
+    flags = torch.cat([flags[:s], later | flags[:-s]])
+    s *= 2
+  last = torch.ones((e,), dtype=torch.bool, device=dst.device)
+  last[:-1] = dst[:-1] != dst[1:]
+  tgt = dst[last]
+
+  def scatter(leaf, ident):
+    out = torch.full((n,) + leaf.shape[1:], ident, dtype=leaf.dtype,
+                     device=leaf.device)
+    out[tgt] = leaf[last]
+    return out
+  return _tree.tree_map(scatter, r, idents)
+
+
 def spmv_coo(g: graphlib.CooGraph, msg: PyTree, active: torch.Tensor,
              dst_prop: PyTree, program: GraphProgram,
              with_recv: bool = True
              ) -> Tuple[PyTree, Optional[torch.Tensor]]:
-  if program.reduce_kind not in _SCATTER_FAST:
-    raise _no_generic(program)
   r, valid, dst = _coo_process(g, 0, g.capacity, msg, active, dst_prop,
                                program)
-  y = _tree.tree_map(
-      lambda out, leaf: _scatter_into(out, dst, leaf, program.reduce_kind),
-      _empty_out(program, r, g.n), r)
+  if program.reduce_kind in _SCATTER_FAST:
+    y = _tree.tree_map(
+        lambda out, leaf: _scatter_into(out, dst, leaf, program.reduce_kind),
+        _empty_out(program, r, g.n), r)
+  else:
+    y = _segment_reduce_scan(r, dst, g.n, program.reduce_fn(),
+                             _idents(program, r))
   if not with_recv:
     return y, None
   recv = torch.zeros((g.n,), dtype=torch.int32, device=dst.device)
@@ -249,8 +313,6 @@ def _ell_packed_compute(g: graphlib.EllGraph, msg: PyTree,
                         active: torch.Tensor, dst_prop: PyTree,
                         program: GraphProgram):
   """Per-packed-row (y_packed, recv_packed) on the ELL block."""
-  if program.reduce_kind not in _SCATTER_FAST:
-    raise _no_generic(program)
   m = _tree_gather(msg, g.cols)                       # [n_pad, W, ...]
   valid = g.mask & active[g.cols]
   shape = tuple(g.cols.shape)
@@ -264,9 +326,7 @@ def _ell_packed_compute(g: graphlib.EllGraph, msg: PyTree,
         lambda x: x[:1][:, None].expand(shape + x.shape[1:]), dst_prop)
   r = program.process_message(m, _edge_values(g.vals, m, 2), dp)
   r = _tree_where(valid, r, _idents(program, r))
-  y_packed = _tree.tree_map(
-      lambda x: _axis_reduce(x, program.reduce_kind, 1), r)
-  return y_packed, valid.any(dim=1)
+  return _reduce_rows(r, program, 1), valid.any(dim=1)
 
 
 def _unpermute(g: graphlib.EllGraph, y_packed: PyTree,

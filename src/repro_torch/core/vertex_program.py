@@ -27,8 +27,10 @@ the same function:
 * ``"msg_plus_edge"``: ``m + e`` (SSSP, MIN_PLUS);
 * ``"msg_times_edge"``: ``m * e`` (PLUS_TIMES, MAX_TIMES);
 * ``"edge_minus_msg_dst_times_msg"``: ``(e - m * d) * m``, which reads the
-  destination property ``d`` (the per-lane update of collaborative
-  filtering; the reference's ``plus_dst`` test semiring).
+  destination property ``d`` (the reference's ``plus_dst`` test semiring).
+  It acts lane by lane, so it equals collaborative filtering's update,
+  ``(e - Σ_k m_k d_k) * m``, only at K = 1; CF runs on the torch backends,
+  as in the reference (:mod:`repro_torch.algos.collab_filter`).
 
 A program without a ``process_op`` is not eligible for the kernel.
 """

@@ -42,7 +42,7 @@ def test_port_imports_with_jax_blocked():
       "import repro_torch, repro_torch.core, repro_torch.graphs\n"
       "import repro_torch.kernels.ops, repro_torch.algos, repro_torch.service\n"
       "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
-      "import repro_torch.kernels.selective_scan\n"
+      "import repro_torch.kernels.selective_scan, repro_torch.algos.native\n"
       "repro_torch.configs.get_config('falcon_mamba_7b')\n"
       "assert not any(k.split('.')[0] in ('jax', 'repro') and v is not None\n"
       "               for k, v in sys.modules.items())\n")

@@ -150,17 +150,6 @@ def test_mask_inert_matches_jax(rmat_small):
                      GraphProgram(process_message=lambda m, e, d: m))
 
 
-def test_generic_reduce_not_ported(rmat_small):
-  _, tg = _graphs(rmat_small, "coo")
-  prog = GraphProgram(process_message=lambda m, e, d: m, reduce_kind="generic",
-                      reduce=lambda a, b: a, reduce_identity=0.0)
-  n = rmat_small[0]
-  msg, active, prop = _inputs(n, 0, np.float32)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    tspmv.spmv_coo(tg, torch.from_numpy(msg), torch.from_numpy(active),
-                   torch.from_numpy(prop), prog)
-
-
 def test_dst_reading_program_matches_jax(rmat_small):
   """The torch ELL and COO paths also run programs that read the
   destination property (not kernel-eligible in this slice)."""
