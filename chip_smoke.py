@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) once on one GPU.
 
     python3 chip_smoke.py            # all phases, RMAT scale 20, 64 layers
-    python3 chip_smoke.py --scale 12 # a quicker rehearsal (smaller graph)
+    python3 chip_smoke.py --scale 12 # a quicker rehearsal (smaller graphs)
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -52,6 +52,28 @@ Phases, in order; any failure exits non-zero before the result line:
    step (``torch.profiler``), prefill against decode logits (in bf16 and
    again in float32 compute), and ``forward`` fused against ``assoc`` on 2
    layers;
+8. the 2-D distributed runner (``core/distributed.py``) on the card: the
+   phase-3 edges relabelled by ``shuffle_vertices`` and partitioned by
+   ``partition_2d`` in the parent (before phase 5 frees the graph), then
+   four spawned ranks on the one card over a gloo group (R = C = 2; NCCL
+   refuses two ranks on one device) and one rank over an NCCL group (R = C
+   = 1), each running BFS, SSSP, PageRank (20 sweeps, every vertex active)
+   and 8 batched BFS queries on its block through ``Plan("coo")``, held
+   against the single-device engine on the same edges; the block
+   populations, and each run's superstep split into reshard, block SpMV,
+   reduce and count.  Four ranks sharing one card measure the runner's
+   overhead, not scale-out;
+9. serve Granite-8B at its published widths and depth (the dense family:
+   random float32 weights from a seeded generator on the card, bf16
+   compute): 4 prompts of 2,048 tokens through ``make_prefill``
+   (``kv_chunk`` 1024), one decode step at B = 4 against a 4,096-slot
+   cache at position 2,048, the prompts cut to 32 tokens through the decode
+   step and ``generate`` (16 greedy tokens), prefill against decode logits
+   (bf16 and float32 compute), ``torch.profiler`` passes of a prefill and a
+   decode step, one layer's attention and SwiGLU blocks, and chunked
+   against dense attention on that layer's tensors, with
+   ``scaled_dot_product_attention`` timed beside it as a yardstick (not on
+   the path); neither kernel is launched (none is owed there);
 
 then the ``{"kernels": [...]}`` line, the card line and last ``{"ok": true,
 "device": {...}}``.  Detail that is too long for the end of the output goes
@@ -70,7 +92,13 @@ at full width atol 2e-5 times max|y_plain|, because the two sum the N
 products in another order.  Logits: prefill against decode within
 ``PREFILL_DECODE_TOL`` times max|logit| in bf16 and
 ``PREFILL_DECODE_F32_TOL`` in float32 compute, fused against assoc within
-``FUSED_ASSOC_TOL`` times max|logit| (see their comments).
+``FUSED_ASSOC_TOL`` times max|logit| (see their comments).  The 2-D
+runner: BFS and SSSP bitwise with equal superstep counts (min over the same
+float32 candidates is exact in any order), the batched BFS bitwise with
+equal per-query counts, PageRank at rtol 1e-4.  Granite-8B: prefill against
+decode within ``GQA_PREFILL_DECODE_TOL`` (bf16) and
+``GQA_PREFILL_DECODE_F32_TOL`` (float32) times max|logit|, chunked against
+dense attention within ``CHUNKED_DENSE_TOL`` times max|out|.
 """
 
 from __future__ import annotations
@@ -80,6 +108,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1417,6 +1446,444 @@ def phase_lm(ss_mod, seed: int = 0) -> dict:
           "peak_device_gib": peak_gib}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the 2-D distributed runner on the card
+# ---------------------------------------------------------------------------
+
+DIST_GRIDS = ((2, 2, "gloo"), (1, 1, "nccl"))  # R, C, process-group backend
+DIST_QUERIES = 8
+DIST_PR_ITERS = 20
+DIST_SHUFFLE_SEED = 3  # examples/distributed_pagerank.py's relabelling
+
+
+def prepare_2d(edges: dict, n: int, out_dir: pathlib.Path) -> dict:
+  """Relabel the phase-3 edges with ``shuffle_vertices`` (so that block
+  populations balance) and partition them once for each grid of phase 8,
+  here in the parent: each rank maps its own block from ``out_dir``."""
+  import numpy as np
+  from repro_torch.core.distributed import partition_2d
+  from repro_torch.graphs import shuffle_vertices
+  t0 = time.perf_counter()
+  src, dst, perm = shuffle_vertices(edges["src"], edges["dst"], n,
+                                    seed=DIST_SHUFFLE_SEED)
+  out = {"src": src, "dst": dst, "w": edges["w"], "n": n,
+         "root": int(perm[edges["root"]]),
+         "sources": perm[edges["sources"][:DIST_QUERIES]].tolist(),
+         "grids": {}}
+  for R, C, _ in DIST_GRIDS:
+    dg = partition_2d(src, dst, edges["w"], n=n, R=R, C=C)
+    path = out_dir / f"{R}x{C}"
+    dg.save(path)
+    np.save(path / "out_deg.npy",
+            np.bincount(src, minlength=dg.n_pad).astype(np.float32))
+    pop = dg.emask.sum(axis=-1)
+    out["grids"][f"{R}x{C}"] = {
+        "dir": str(path), "n_pad": dg.n_pad,
+        "capacity": int(dg.src.shape[-1]), "block_edges_max": int(pop.max()),
+        "block_edges_mean": float(pop.mean())}
+    del dg
+  out["prepare_s"] = time.perf_counter() - t0
+  log(f"phase 8: relabelled and partitioned in the parent in "
+      f"{out['prepare_s']:.1f} s; block populations " + json.dumps(
+          {k: {f: v[f] for f in ("block_edges_max", "block_edges_mean")}
+               for k, v in out["grids"].items()}))
+  return out
+
+
+def pagerank_sweeps_program():
+  """PageRank with every vertex active in every superstep, as the paper's
+  fixed sweeps run (``run_fixed_iters`` re-arms the frontier).  Under the
+  default frontier of changed vertices a vertex whose float32 rank stops
+  changing drops out, so two runs that sum in other orders (the 2-D
+  reduce against one device) would part by more than rounding."""
+  import dataclasses
+  import torch
+  from repro_torch.algos.pagerank import pagerank_program
+  return dataclasses.replace(
+      pagerank_program(), name="pagerank_sweeps",
+      activate=lambda old, new: torch.ones_like(new["deg"], dtype=torch.bool))
+
+
+def rank_2d(grid, graph_dir: str, root: int, sources: list) -> dict:
+  """One rank of phase 8 (a spawned process): BFS, SSSP, PageRank and
+  batched BFS on its block, each once to warm up and once timed, then once
+  more with the superstep split recorded."""
+  import numpy as np
+  import torch
+  import torch.distributed as dist
+  from repro_torch.algos.bfs import UNREACHED, bfs_program
+  from repro_torch.algos.multi import bfs_columns, multi_bfs_program
+  from repro_torch.algos.sssp import sssp_program
+  from repro_torch.core import distributed as D
+  from repro_torch.core.backends import Plan
+  from repro_torch.kernels import ell_spmv
+
+  torch.cuda.set_device(0)
+  ell_spmv.launches.reset()
+  dev = torch.device("cuda", 0)
+  dg = D.DistGraph.load(graph_dir)
+  block = dg.block(grid.i, grid.j, dev)
+  n_pad = dg.n_pad
+  one = torch.zeros((n_pad,), dtype=torch.bool, device=dev)
+  one[root] = True
+  dist0 = torch.full((n_pad,), UNREACHED, dtype=torch.int32, device=dev)
+  dist0[root] = 0
+  sp0 = torch.full((n_pad,), float("inf"), device=dev)
+  sp0[root] = 0.0
+  deg = torch.from_numpy(np.load(pathlib.Path(graph_dir) / "out_deg.npy"))
+  pr0 = {"rank": torch.ones((n_pad,), device=dev), "deg": deg.to(dev)}
+  mb0, ma0 = bfs_columns(torch.tensor(sources, device=dev), n_pad)
+  coo = Plan(backend="coo")
+  runs = {
+      "bfs": lambda t: D.run_graph_program_2d(
+          block, bfs_program(), dist0, one, grid, backend=coo, timings=t),
+      "sssp": lambda t: D.run_graph_program_2d(
+          block, sssp_program(), sp0, one, grid, backend=coo, timings=t),
+      "pagerank": lambda t: D.run_graph_program_2d(
+          block, pagerank_sweeps_program(), pr0, torch.ones_like(one), grid,
+          max_iters=DIST_PR_ITERS, backend=coo, timings=t),
+      "multi_bfs": lambda t: D.run_graph_program_2d_batched(
+          block, multi_bfs_program(), mb0, ma0, grid, backend=coo,
+          timings=t),
+  }
+  out = {"edges": int(block.emask.sum())}
+  for name, run in runs.items():
+    run(None)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    fin = run(None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split: dict = {}
+    run(split)
+    res = {"wall_s": wall, "split_s": split,
+           "supersteps": int(fin.iteration)}
+    if grid.rank == 0:
+      prop = fin.prop["rank"] if name == "pagerank" else fin.prop
+      res["prop"] = prop.cpu()
+      if name == "multi_bfs":
+        res["iters"] = fin.iters.cpu()
+    out[name] = res
+  out["ell_launches"] = ell_spmv.launches.total
+  return out
+
+
+def phase_2d(prep: dict) -> dict:
+  """The 2-D runner on the card against the single-device engine through
+  ``Plan("coo")`` on the same relabelled edges."""
+  import numpy as np
+  import torch
+  from repro_torch.algos.bfs import UNREACHED, bfs_program
+  from repro_torch.algos.multi import bfs_columns, multi_bfs_program
+  from repro_torch.algos.pagerank import pagerank_program
+  from repro_torch.algos.sssp import sssp_program
+  from repro_torch.core import distributed as D
+  from repro_torch.core import graph as G
+  from repro_torch.core.backends import Plan
+  from repro_torch.core.engine import run_batched, run_graph_program
+
+  n, root = prep["n"], prep["root"]
+  coo = Plan(backend="coo")
+  g = G.build_coo(prep["src"], prep["dst"], prep["w"], n=n, device="cuda")
+  one = torch.zeros((n,), dtype=torch.bool, device="cuda")
+  one[root] = True
+  dist0 = torch.full((n,), UNREACHED, dtype=torch.int32, device="cuda")
+  dist0[root] = 0
+  sp0 = torch.full((n,), float("inf"), device="cuda")
+  sp0[root] = 0.0
+  deg = torch.bincount(g.src[g.emask], minlength=n).to(torch.float32)
+  mb0, ma0 = bfs_columns(torch.tensor(prep["sources"], device="cuda"), n)
+  t0 = time.perf_counter()
+  ref = {
+      "bfs": run_graph_program(g, bfs_program(), dist0, one, backend=coo),
+      "sssp": run_graph_program(g, sssp_program(), sp0, one, backend=coo),
+      "pagerank": run_graph_program(
+          g, pagerank_sweeps_program(),
+          {"rank": torch.ones((n,), device="cuda"), "deg": deg},
+          torch.ones_like(one), max_iters=DIST_PR_ITERS, backend=coo),
+      "multi_bfs": run_batched(g, multi_bfs_program(), mb0, ma0,
+                               backend=coo)}
+  torch.cuda.synchronize()
+  ref_s = time.perf_counter() - t0
+  want = {k: (v.prop["rank"] if k == "pagerank" else v.prop).cpu()
+          for k, v in ref.items()}
+  steps = {k: int(v.iteration) for k, v in ref.items()}
+  ref_iters = ref["multi_bfs"].iters.cpu()
+  del ref, g
+  torch.cuda.empty_cache()
+  log(f"phase 8: single-device reference (coo) in {ref_s:.2f} s, supersteps "
+      + json.dumps(steps))
+
+  out = {"reference_supersteps": steps, "reference_s": ref_s,
+         "partition": {k: {f: v[f] for f in v if f != "dir"}
+                       for k, v in prep["grids"].items()},
+         "prepare_s": prep["prepare_s"], "runs": {}}
+  for R, C, backend in DIST_GRIDS:
+    key = f"{R}x{C}"
+    t0 = time.perf_counter()
+    ranks = D.launch(rank_2d, R, C, prep["grids"][key]["dir"], root,
+                     prep["sources"], backend=backend)
+    launch_s = time.perf_counter() - t0
+    got = ranks[0]
+    for name in ("bfs", "sssp", "pagerank", "multi_bfs"):
+      res = got[name]
+      if res["supersteps"] != steps[name]:
+        raise AssertionError(f"phase 8: {key} {name} ran {res['supersteps']}"
+                             f" supersteps, the single device {steps[name]}")
+      p = res["prop"][:n]
+      if name == "pagerank":
+        torch.testing.assert_close(p, want[name], rtol=1e-4, atol=0.0)
+      elif not torch.equal(p, want[name]):
+        raise AssertionError(f"phase 8: {key} {name} != single device")
+      if name == "multi_bfs" and not torch.equal(res["iters"], ref_iters):
+        raise AssertionError(f"phase 8: {key} per-query supersteps differ")
+    if any(r["ell_launches"] for r in ranks):
+      raise AssertionError("phase 8: a COO block launched the ELL kernel")
+    run = {"backend": backend, "ranks": R * C, "launch_s": launch_s}
+    for name in ("bfs", "sssp", "pagerank", "multi_bfs"):
+      k = got[name]["supersteps"]
+      # Ranks wait for one another in the collectives: the slowest rank's
+      # wall time is the run's, and its split is printed.
+      slow = max(ranks, key=lambda r: r[name]["wall_s"])[name]
+      run[name] = {"supersteps": k, "wall_ms": slow["wall_s"] * 1e3,
+                   "ms_per_superstep": slow["wall_s"] * 1e3 / k,
+                   "split_ms_per_superstep": {
+                       s: v * 1e3 / k for s, v in slow["split_s"].items()}}
+      if name == "pagerank":
+        run[name]["max_abs_err"] = float(
+            (got[name]["prop"][:n].double() - want[name].double()).abs().max())
+      log(f"phase 8: {key} ({backend}, {R * C} ranks on one card) {name}: "
+          f"{k} supersteps, {slow['wall_s'] * 1e3:.2f} ms "
+          f"({slow['wall_s'] * 1e3 / k:.3f} ms a superstep); split ms a "
+          f"superstep " + json.dumps(
+              {s: round(v, 4) for s, v in
+               run[name]["split_ms_per_superstep"].items()})
+          + (" == single device bitwise" if name != "pagerank"
+             else f", max abs err {run[name]['max_abs_err']:.3g} at rtol "
+             "1e-4"))
+    out["runs"][key] = run
+    log(f"phase 8: {key} launch of {R * C} ranks took {launch_s:.1f} s")
+  return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: Granite-8B at full width (the dense family)
+# ---------------------------------------------------------------------------
+
+# Prefill against decode logits after 32 tokens of 36 layers, in bf16: the
+# two paths round to bf16 at other places (the chunked softmax's f32 result
+# and the decode path's grouped one), as the Falcon check does; the limit
+# is the Falcon one, set before the first run.  The float32 check binds the
+# arithmetic.
+GQA_PREFILL_DECODE_TOL = 0.08
+GQA_PREFILL_DECODE_F32_TOL = 1e-3
+# chunked_attention against dense_attention on one layer's bf16 prefill
+# tensors: both compute in f32 and round the result to bf16 once, so they
+# may differ by one bf16 step (2^-8 of a value) where the f32 sums round to
+# either side: limit 2^-7 of max|out|.
+CHUNKED_DENSE_TOL = 2.0 ** -7
+H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate, data sheet
+
+
+def phase_granite(seed: int = 0) -> dict:
+  import torch
+  from repro_torch import configs
+  from repro_torch._tree import tree_leaves
+  from repro_torch.models import attention as attn
+  from repro_torch.models import transformer as T
+  from repro_torch.models.common import (embed_lookup, init_params,
+                                         num_params, rms_norm)
+  from repro_torch.models.transformer import build_model
+  from repro_torch.serve import generate, make_decode_step, make_prefill
+
+  cfg = configs.get_config("granite_8b")
+  model = build_model(cfg)
+  vocab = cfg.vocab_size
+  torch.cuda.reset_peak_memory_stats()
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  t0 = time.perf_counter()
+  params = init_params(model.defs(), gen)
+  torch.cuda.synchronize()
+  t_init = time.perf_counter() - t0
+  n_params = num_params(model.defs())
+  log(f"phase 9: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+      f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV of {cfg.head_dim}, "
+      f"d_ff {cfg.d_ff}, vocab {vocab}; {n_params:,} params, "
+      f"{n_params * 4 / 2**30:.2f} GiB f32) initialized in {t_init:.3f} s")
+
+  b, s, chunk = 4, 2048, 1024
+  tokens = torch.randint(0, vocab, (b, s), generator=gen, device="cuda",
+                         dtype=torch.int32)
+  prefill = make_prefill(model)
+  t0 = time.perf_counter()
+  logits = prefill(params, {"tokens": tokens})
+  torch.cuda.synchronize()
+  t_first = time.perf_counter() - t0
+  if logits.shape != (b, s, cfg.padded_vocab(1)):
+    raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
+  if not torch.isfinite(logits).all():
+    raise AssertionError("prefill logits are not finite")
+  del logits
+  prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), iters=3,
+                       warmup=1)
+  log(f"phase 9: prefill {b}x{s} tokens (kv_chunk {chunk}): finite logits; "
+      f"first call {t_first:.3f} s, then {prefill_ms:.2f} ms (CUDA events, "
+      f"mean of 3), {b * s / prefill_ms * 1e3:.0f} prompt tokens/s")
+
+  # One decode step at B = 4 against a 4,096-slot cache at position 2,048.
+  step = make_decode_step(model)
+  long_cache = model.init_cache(b, 2 * s)
+  tok = tokens[:, :1].contiguous()
+  decode_ms = cuda_ms(lambda: step(params, tok, long_cache, s), iters=10,
+                      warmup=2)
+  busy_prefill = device_busy(lambda: prefill(params, {"tokens": tokens}))
+  log(busy_line(f"phase 9: prefill {b}x{s}", busy_prefill))
+  busy_decode = device_busy(lambda: step(params, tok, long_cache, s))
+  log(busy_line(f"phase 9: decode step B={b} at pos {s}", busy_decode))
+  del long_cache
+  log(f"phase 9: decode step {decode_ms:.2f} ms at B={b}, pos {s} of a "
+      f"{2 * s}-slot cache ({b / decode_ms * 1e3:.1f} tokens/s)")
+
+  # The prompts cut to 32 tokens: prefill against the decode path, then
+  # generate's greedy tokens.
+  p, new = 32, 16
+  short = tokens[:, :p].contiguous()
+  pre_last = prefill(params, {"tokens": short})[:, -1, :vocab].float()
+  cache = model.init_cache(b, p + new)
+  for i in range(p):
+    logits, cache = step(params, short[:, i:i + 1], cache, i)
+  dec_last = logits[:, -1, :vocab].float()
+  del cache, logits
+  out = generate(model, params, short, max_new=new)
+  torch.cuda.synchronize()
+  if out.shape != (b, p + new) or not torch.equal(out[:, :p], short):
+    raise AssertionError(f"generate returned {tuple(out.shape)}")
+  if not ((out >= 0) & (out < vocab)).all():
+    raise AssertionError("generated token out of range")
+  if not torch.isfinite(dec_last).all():
+    raise AssertionError("decode logits are not finite")
+  scale = float(pre_last.abs().max())
+  err = float((pre_last - dec_last).abs().max())
+  top2 = torch.topk(pre_last, 2, dim=-1).values
+  sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+  agree = pre_last.argmax(-1) == out[:, p]
+  log(f"phase 9: prefill vs decode logits after {p} tokens: max abs err "
+      f"{err:.4g}, max|logit| {scale:.4g} ({err / scale:.4g} of it; "
+      f"tolerance {GQA_PREFILL_DECODE_TOL}); generate: {new} tokens; prefill "
+      f"argmax == first generated token for {int(agree.sum())}/{b} prompts "
+      f"({int(sure.sum())} with a top-2 margin above twice the error)")
+  if err > GQA_PREFILL_DECODE_TOL * scale:
+    raise AssertionError("prefill and decode logits disagree")
+  if not agree[sure].all():
+    raise AssertionError("prefill argmax != first generated token where the "
+                         "top-2 margin exceeds twice the error")
+
+  # The same in float32 compute (the same weights).
+  m32 = build_model(cfg.scaled(dtype="float32"))
+  pre32 = make_prefill(m32)(params, {"tokens": short})[:, -1, :vocab]
+  step32 = make_decode_step(m32)
+  cache = m32.init_cache(b, p)
+  for i in range(p):
+    logits, cache = step32(params, short[:, i:i + 1], cache, i)
+  dec32 = logits[:, -1, :vocab]
+  del cache, logits
+  scale32 = float(pre32.abs().max())
+  err32 = float((pre32 - dec32).abs().max())
+  top2 = torch.topk(pre32, 2, dim=-1).values
+  sure32 = (top2[:, 0] - top2[:, 1]) > 2 * err32
+  agree32 = pre32.argmax(-1) == dec32.argmax(-1)
+  log(f"phase 9: f32 compute, prefill vs decode logits after {p} tokens: "
+      f"max abs err {err32:.4g}, max|logit| {scale32:.4g} "
+      f"({err32 / scale32:.4g} of it; tolerance "
+      f"{GQA_PREFILL_DECODE_F32_TOL}); argmax equal for "
+      f"{int(agree32.sum())}/{b} ({int(sure32.sum())} with a top-2 margin "
+      f"above twice the error)")
+  if err32 > GQA_PREFILL_DECODE_F32_TOL * scale32 or not agree32[sure32].all():
+    raise AssertionError("f32 prefill and decode logits disagree")
+
+  # One layer at the prefill's shapes: its attention and SwiGLU blocks, and
+  # chunked attention against dense attention and against the library's
+  # flash attention (a yardstick, not on the path).
+  lp0 = T._layer(params["layers"], 0)
+  with torch.inference_mode():
+    x = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+    h = rms_norm(x, lp0["ln1"], cfg.norm_eps)
+    q, k, v = attn.gqa_qkv(lp0["attn"], h, pos, cfg)
+    rep = cfg.num_heads // cfg.num_kv_heads
+    k, v = attn._repeat_kv(k, rep), attn._repeat_kv(v, rep)
+    chunked = attn.chunked_attention(q, k, v, pos, pos, kv_chunk=chunk)
+    dense = attn.dense_attention(q, k, v, pos, pos)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True).transpose(1, 2)
+    att_scale = float(dense.float().abs().max())
+    cd_err = float((chunked.float() - dense.float()).abs().max())
+    sdpa_err = float((sdpa.float() - dense.float()).abs().max())
+    if not cd_err <= CHUNKED_DENSE_TOL * att_scale:
+      raise AssertionError(f"chunked attention != dense ({cd_err:.4g})")
+    del dense
+    chunked_ms, sdpa_ms = paired_ms(
+        lambda: attn.chunked_attention(q, k, v, pos, pos, kv_chunk=chunk),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=3, repeats=3, warmup=1)
+    attn_block_ms = cuda_ms(lambda: T._attn_apply(lp0, x, pos, cfg,
+                                                  kv_chunk=chunk),
+                            iters=3, warmup=1)
+    ffn_block_ms = cuda_ms(lambda: T._ffn_apply(lp0, x, cfg), iters=3,
+                           warmup=1)
+  del q, k, v, qt, kt, vt, chunked, sdpa, x, h
+  # FLOPs of the layer's attention core (QKᵀ and PV over every chunk, as
+  # the reference computes them) and of SDPA's causal half.
+  attn_flops = 4 * b * s * s * cfg.num_heads * cfg.head_dim
+  mats = [t for t in tree_leaves(params["layers"]) if t.dim() == 3]
+  mats.append(params["lm_head"])
+
+  def cast_all():
+    for t in mats:
+      t.to(cfg.compute_dtype)
+
+  cast_ms = cuda_ms(cast_all, iters=3, warmup=1)
+  log(f"phase 9: one layer at {b}x{s}: attention block {attn_block_ms:.2f} "
+      f"ms, SwiGLU block {ffn_block_ms:.2f} ms (x{cfg.num_layers} = "
+      f"{(attn_block_ms + ffn_block_ms) * cfg.num_layers:.1f} ms); weight "
+      f"cast f32->bf16 {cast_ms:.2f} ms per forward or step")
+  log(f"phase 9: chunked attention [{b}, {s}, {cfg.num_heads}, "
+      f"{cfg.head_dim}] bf16: {chunked_ms:.3f} ms "
+      f"({attn_flops / chunked_ms / 1e9:.1f} TFLOP/s f32 counted over every "
+      f"chunk), max abs err vs dense {cd_err:.4g}, max|out| "
+      f"{att_scale:.4g} ({cd_err / att_scale:.4g} of it; tolerance "
+      f"{CHUNKED_DENSE_TOL:.4g}); scaled_dot_product_attention "
+      f"(causal, a yardstick) {sdpa_ms:.3f} ms, max abs err vs dense "
+      f"{sdpa_err:.4g}")
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  log(f"phase 9: peak device memory {peak_gib:.2f} GiB")
+  # Every matrix but the embedding table multiplies each prompt token.
+  gemm_flops = 2 * b * s * (n_params - cfg.padded_vocab(1) * cfg.d_model)
+  return {"config": cfg.name, "num_layers": cfg.num_layers,
+          "params": n_params, "init_s": t_init, "prefill_batch": [b, s],
+          "kv_chunk": chunk, "prefill_first_s": t_first,
+          "prefill_ms": prefill_ms,
+          "prefill_tokens_per_s": b * s / prefill_ms * 1e3,
+          "prefill_gemm_flops": gemm_flops,
+          "prefill_attention_flops": attn_flops * cfg.num_layers,
+          "decode_step_ms": decode_ms, "decode_batch": b,
+          "decode_pos": s, "decode_cache_slots": 2 * s,
+          "prefill_profile": busy_prefill, "decode_profile": busy_decode,
+          "prefill_decode_max_abs_err": err, "prefill_max_abs_logit": scale,
+          "argmax_agree": int(agree.sum()), "argmax_sure": int(sure.sum()),
+          "f32_prefill_decode_max_abs_err": err32,
+          "f32_prefill_max_abs_logit": scale32,
+          "layer_attention_block_ms": attn_block_ms,
+          "layer_swiglu_block_ms": ffn_block_ms, "weight_cast_ms": cast_ms,
+          "chunked_attention_ms": chunked_ms, "sdpa_ms": sdpa_ms,
+          "chunked_dense_max_abs_err": cd_err,
+          "sdpa_dense_max_abs_err": sdpa_err,
+          "attention_max_abs_out": att_scale,
+          "peak_device_gib": peak_gib}
+
+
 def main(argv=None) -> int:
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   ap.add_argument("--scale", type=int, default=20,
@@ -1461,6 +1928,8 @@ def main(argv=None) -> int:
   entries, array_bounds, split, by_frontier = phase_timing(
       g, ell_mod, ref_mod, slice_stats["launches"], recorded)
   suite = phase_suite_graph(g, edges, ell_mod)
+  dist_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_2d_")
+  prep = prepare_2d(edges, g.n, pathlib.Path(dist_tmp.name))
   del g, recorded, edges  # the graph phases' tensors, before TC's bitmaps
   torch.cuda.empty_cache()
   suite.update(phase_suite_tc_cf())
@@ -1478,6 +1947,19 @@ def main(argv=None) -> int:
   log(f"phase 7: {lm['scan_launches_per_prefill']} scan launches x "
       f"{scan['ms']:.4f} ms = {lm['scan_share_of_prefill']:.4f} of the "
       f"{lm['prefill_ms']:.2f} ms prefill")
+  try:
+    dist2d = phase_2d(prep)
+  finally:
+    dist_tmp.cleanup()
+  del prep
+  torch.cuda.empty_cache()
+  ell_mod.launches.reset()
+  ss_mod.launches = 0
+  granite = phase_granite()
+  granite["kernel_launches"] = {"ell_spmv": ell_mod.launches.total,
+                                "selective_scan": ss_mod.launches}
+  log("phase 9: kernel launches on the dense path (none is owed) "
+      + json.dumps(granite["kernel_launches"]))
   b, s, _, _ = FALCON_SCAN
   entries.append({
       "name": f"selective_scan[falcon-mamba-7b,f32,B={b},S={s}]",
@@ -1494,7 +1976,8 @@ def main(argv=None) -> int:
       "card": card, "build": builds, "sweep": sweep, "slice": slice_stats,
       "kernels": entries, "ell_array_bound_ms": array_bounds,
       "ell_ms_by_frontier": by_frontier, "superstep_split": split,
-      "suite": suite, "scan": scan, "lm": lm}, indent=1))
+      "suite": suite, "scan": scan, "lm": lm, "dist2d": dist2d,
+      "granite": granite}, indent=1))
   log(card)
   print(json.dumps({"kernels": entries}), flush=True)
   print(json.dumps({"ok": True, "device": {

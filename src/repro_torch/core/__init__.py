@@ -13,3 +13,5 @@ from repro_torch.core.spmv import (  # noqa: F401
 from repro_torch.core.backends import (  # noqa: F401
     AUTO_PLAN, Backend, GraphStats, Plan, PlanCache, PlanLike, Planner,
     as_plan, compute_stats, get_backend, register, registered_backends)
+from repro_torch.core.distributed import (  # noqa: F401
+    DistGraph, Grid, launch, partition_2d, run_graph_program_2d, spmv_2d)

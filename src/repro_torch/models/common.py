@@ -1,4 +1,5 @@
-"""Parameter definitions and shared layers (norms, embeddings, projections).
+"""Parameter definitions and shared layers (norms, RoPE, embeddings,
+projections).
 
 Params are nested dicts of tensors, with the JAX package's keys and shapes
 (stacked layers keep their leading ``[num_layers, ...]`` axis), so weights
@@ -78,6 +79,26 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
   x32 = x.float()
   var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
   return (x32 * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: DeviceLike = None) -> torch.Tensor:
+  """[head_dim/2] inverse frequencies (float32)."""
+  return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                       device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+  """Rotate [..., S, H, D] by position (half-split: the first and second
+  halves of D are the pairs).  ``positions``: [..., S] int."""
+  inv = rope_freqs(x.shape[-1], theta, device=x.device)   # [D/2]
+  ang = positions[..., None].float() * inv                # [..., S, D/2]
+  cos = torch.cos(ang)[..., None, :]                      # [..., S, 1, D/2]
+  sin = torch.sin(ang)[..., None, :]
+  x1, x2 = x.float().chunk(2, dim=-1)
+  out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+  return out.to(x.dtype)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,

@@ -1,6 +1,7 @@
-"""Model assembly: the ``"ssm"`` (Mamba-1) family.
+"""Model assembly: the ``"dense"`` (GQA decoder) and ``"ssm"`` (Mamba-1)
+families.
 
-The port of :mod:`repro.models.transformer` for the one family ported so
+The port of :mod:`repro.models.transformer` for the families ported so
 far.  Layer parameters keep the reference's stacked ``[num_layers, ...]``
 axis; the reference's ``lax.scan`` over them becomes a Python loop over the
 layer index.  Remat is a training matter and has no place here.
@@ -21,6 +22,8 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._tree import tree_map
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffnlib
 from repro_torch.models import ssm as ssmlib
 from repro_torch.models.common import (ParamDef, embed_lookup, rms_norm,
                                        unembed)
@@ -30,8 +33,8 @@ PyTree = Any
 Tensor = torch.Tensor
 
 # The ROADMAP item (Queue 1) that ports each family not ported yet.
-_FAMILY_ITEM = {"dense": "6.1", "vlm": "6.4", "moe": "6.2", "hybrid": "6.3",
-                "encdec": "6.4"}
+_FAMILY_ITEM = {"vlm": "6.4", "moe": "6.2", "hybrid": "6.3", "encdec": "6.4"}
+_PORTED = ("dense", "ssm")
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +76,38 @@ def scan_layers_cache(stacked_params: PyTree, cache: PyTree, x: Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _attn_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
+  return {"ln1": ParamDef((cfg.d_model,), init="ones"),
+          "attn": attn.gqa_defs(cfg)}
+
+
+def _attn_apply(params, x, positions, cfg, *, causal=True, kv_chunk=1024):
+  h = rms_norm(x, params["ln1"], cfg.norm_eps)
+  return x + attn.gqa_forward(params["attn"], h, positions, cfg,
+                              causal=causal, kv_chunk=kv_chunk)
+
+
+def _attn_apply_decode(params, x, cache, pos, cfg):
+  h = rms_norm(x, params["ln1"], cfg.norm_eps)
+  out, cache = attn.gqa_decode(params["attn"], h, cache, pos, cfg)
+  return x + out, cache
+
+
+def _ffn_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
+  return {"ln2": ParamDef((cfg.d_model,), init="ones"),
+          "mlp": ffnlib.swiglu_defs(cfg.d_model, cfg.d_ff)}
+
+
+def _ffn_apply(params, x, cfg):
+  h = rms_norm(x, params["ln2"], cfg.norm_eps)
+  return x + ffnlib.swiglu(params["mlp"], h, cfg), 0.0
+
+
+# ---------------------------------------------------------------------------
 # Model container
 # ---------------------------------------------------------------------------
 
@@ -83,11 +118,16 @@ class Model:
 
   def __post_init__(self):
     fam = self.cfg.family
-    if fam != "ssm":
+    if fam not in _PORTED:
       item = _FAMILY_ITEM.get(fam, "6")
       raise NotImplementedError(
           f"family {fam!r} is not ported yet (ROADMAP.md Queue 1, item "
-          f"{item}); the port serves the 'ssm' (Mamba-1) family")
+          f"{item}); the port serves the 'dense' (GQA) and 'ssm' (Mamba-1) "
+          "families")
+    if self.cfg.use_mla:
+      raise NotImplementedError(
+          "multi-head latent attention (use_mla) is not ported yet "
+          "(ROADMAP.md Queue 1, item 6.2)")
 
   # ---------------- defs ----------------
 
@@ -98,8 +138,11 @@ class Model:
          "ln_f": ParamDef((cfg.d_model,), init="ones")}
     if not cfg.tie_embeddings:
       d["lm_head"] = ParamDef((cfg.d_model, vpad))
-    layer = {"ln1": ParamDef((cfg.d_model,), init="ones"),
-             "ssm": ssmlib.mamba1_defs(cfg)}
+    if cfg.family == "dense":
+      layer = {**_attn_block_defs(cfg), **_ffn_block_defs(cfg)}
+    else:
+      layer = {"ln1": ParamDef((cfg.d_model,), init="ones"),
+               "ssm": ssmlib.mamba1_defs(cfg)}
     d["layers"] = stack_defs(layer, cfg.num_layers)
     return d
 
@@ -109,15 +152,24 @@ class Model:
     return embed_lookup(params["embed"], batch["tokens"],
                         self.cfg.compute_dtype)
 
-  def forward(self, params, batch: Dict[str, Tensor]
-              ) -> Tuple[Tensor, Tensor]:
-    """Returns (logits [B,S,Vpad], aux scalar)."""
+  def forward(self, params, batch: Dict[str, Tensor], *,
+              kv_chunk: int = 1024) -> Tuple[Tensor, Tensor]:
+    """Returns (logits [B,S,Vpad], aux scalar).  ``kv_chunk``: keys per
+    chunk of the dense family's online softmax."""
     cfg = self.cfg
     x = self.embed_inputs(params, batch)
 
-    def block(lp, h):
-      hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-      return h + ssmlib.mamba1_forward(lp["ssm"], hn, cfg), 0.0
+    if cfg.family == "dense":
+      positions = torch.arange(x.shape[1], dtype=torch.int32,
+                               device=x.device)
+
+      def block(lp, h):
+        h = _attn_apply(lp, h, positions, cfg, kv_chunk=kv_chunk)
+        return _ffn_apply(lp, h, cfg)
+    else:
+      def block(lp, h):
+        hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        return h + ssmlib.mamba1_forward(lp["ssm"], hn, cfg), 0.0
 
     x, aux = scan_layers(params["layers"], x, block, cfg)
     return self._logits(params, x), aux
@@ -132,12 +184,20 @@ class Model:
 
   def init_cache(self, batch_size: int, max_seq: int, *,
                  device: DeviceLike = "cuda") -> PyTree:
-    """Decode state: per layer the last K-1 conv inputs and the SSM state
-    (its size does not grow with ``max_seq``)."""
+    """Decode state.  Dense: per layer a K and a V ring of ``min(max_seq,
+    sliding_window)`` slots (``max_seq`` without a window).  SSM: per layer
+    the last K-1 conv inputs and the SSM state (its size does not grow with
+    ``max_seq``)."""
     cfg = self.cfg
     dev = resolve_device(device)
-    d_inner, _, n = ssmlib.mamba1_dims(cfg)
     L, B = cfg.num_layers, batch_size
+    if cfg.family == "dense":
+      t = (min(max_seq, cfg.sliding_window) if cfg.sliding_window
+           else max_seq)
+      shape = (L, B, t, cfg.num_kv_heads, cfg.resolved_head_dim)
+      return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
+              "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
+    d_inner, _, n = ssmlib.mamba1_dims(cfg)
     return {"conv": torch.zeros((L, B, cfg.ssm_conv - 1, d_inner),
                                 dtype=cfg.compute_dtype, device=dev),
             "h": torch.zeros((L, B, d_inner, n), dtype=torch.float32,
@@ -145,15 +205,24 @@ class Model:
 
   def decode_step(self, params, token: Tensor, cache: PyTree, pos
                   ) -> Tuple[Tensor, PyTree]:
-    """token [B,1] int; pos the token's position (unused by the SSM family).
-    Returns (logits [B,1,V], cache)."""
+    """token [B,1] int; pos the token's position, a Python int or a 0-d
+    tensor (unused by the SSM family).  Returns (logits [B,1,V], cache);
+    the cache passed in is left as it was."""
     cfg = self.cfg
     x = embed_lookup(params["embed"], token, cfg.compute_dtype)
 
-    def block(lp, c, h):
-      hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-      o, c = ssmlib.mamba1_decode(lp["ssm"], hn, c, cfg)
-      return h + o, c
+    if cfg.family == "dense":
+      pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+
+      def block(lp, c, h):
+        h, c = _attn_apply_decode(lp, h, c, pos, cfg)
+        h, _ = _ffn_apply(lp, h, cfg)
+        return h, c
+    else:
+      def block(lp, c, h):
+        hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        o, c = ssmlib.mamba1_decode(lp["ssm"], hn, c, cfg)
+        return h + o, c
 
     x, cache = scan_layers_cache(params["layers"], cache, x, block, cfg)
     return self._logits(params, x), cache

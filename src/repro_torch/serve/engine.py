@@ -3,7 +3,9 @@
 The port of :mod:`repro.serve.engine`.  Each step runs under
 ``torch.inference_mode()``.  As in the reference, ``generate`` feeds the
 prompt token by token through the decode step, so only ``make_prefill``
-(``Model.forward``) runs the fused selective-scan kernel.
+(``Model.forward``) runs the sequence-level paths: the fused selective-scan
+kernel of the SSM family, the chunked attention of the dense family.  A
+decode step's ``pos`` is a Python int or a 0-d tensor.
 """
 
 from __future__ import annotations

@@ -170,9 +170,16 @@ def test_init_params_follows_the_defs():
   assert abs(float(lay["in_proj_u"].std()) - 0.125) < 0.01
 
 
-@pytest.mark.parametrize("family", ["dense", "moe", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["moe", "hybrid", "encdec", "vlm",
+                                    "dense+mla"])
 def test_other_families_name_their_roadmap_item(family):
-  arch = {"dense": "granite_8b", "moe": "mixtral_8x7b", "hybrid": "zamba2_7b",
-          "encdec": "seamless_m4t_medium", "vlm": "internvl2_26b"}[family]
-  with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 6"):
-    build_model(TC.get_smoke_config(arch))
+  arch, item = {"moe": ("mixtral_8x7b", "6.2"), "hybrid": ("zamba2_7b", "6.3"),
+                "encdec": ("seamless_m4t_medium", "6.4"),
+                "vlm": ("internvl2_26b", "6.4"),
+                "dense+mla": ("granite_8b", "6.2")}[family]
+  cfg = TC.get_smoke_config(arch)
+  if family == "dense+mla":  # a dense config with latent attention
+    cfg = cfg.scaled(use_mla=True)
+  with pytest.raises(NotImplementedError,
+                     match=rf"ROADMAP.md Queue 1, item {item}\)"):
+    build_model(cfg)
