@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) once on one GPU.
 
-    python3 chip_smoke.py            # all phases, RMAT scale 20, 64 layers
+    python3 chip_smoke.py            # all phases, RMAT scale 20
     python3 chip_smoke.py --scale 12 # a quicker rehearsal (smaller graphs)
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -74,6 +74,20 @@ Phases, in order; any failure exits non-zero before the result line:
    against dense attention on that layer's tensors, with
    ``scaled_dot_product_attention`` timed beside it as a yardstick (not on
    the path); neither kernel is launched (none is owed there);
+10. serve the moe family at published widths with cut depth (random
+   float32 weights, bf16 compute): Mixtral-8x7B (8 of 32 layers) and then
+   DeepSeek-V2 (MLA, 2 of 60 layers), each as phase 9 serves Granite (a
+   4 × 2,048 prefill, a decode step at position 2,048, 16 greedy tokens,
+   profiler passes); the (token, expert) edges each layer's routing groups
+   drop in the prefill at the config's capacity factor (the layers stepped
+   one by one through the port's ``_route_group_sort``); prefill against
+   decode on the 32-token prompts at that factor (the gap beside the drops,
+   no bound) and at one under which nothing drops, in bf16 and float32,
+   with each path's routing recorded; one layer's attention, routing and
+   dispatch, expert GEMMs and combine at the prefill shape; on that layer's
+   tensors, in float32, sort against onehot dispatch and the combine
+   against ``spmv_coo`` on the token→expert bipartite ``CooGraph``; no
+   kernel is launched (none is owed there);
 
 then the ``{"kernels": [...]}`` line, the card line and last ``{"ok": true,
 "device": {...}}``.  Detail that is too long for the end of the output goes
@@ -98,7 +112,11 @@ float32 candidates is exact in any order), the batched BFS bitwise with
 equal per-query counts, PageRank at rtol 1e-4.  Granite-8B: prefill against
 decode within ``GQA_PREFILL_DECODE_TOL`` (bf16) and
 ``GQA_PREFILL_DECODE_F32_TOL`` (float32) times max|logit|, chunked against
-dense attention within ``CHUNKED_DENSE_TOL`` times max|out|.
+dense attention within ``CHUNKED_DENSE_TOL`` times max|out|.  The moe
+family: with no capacity drops, prefill against decode within
+``MOE_PREFILL_DECODE_TOL`` (bf16) and ``MOE_PREFILL_DECODE_F32_TOL``
+(float32) times max|logit| (see their comment); sort against onehot and the combine against ``spmv_coo``
+within ``MOE_CROSS_TOL`` times max|y|.
 """
 
 from __future__ import annotations
@@ -1884,6 +1902,334 @@ def phase_granite(seed: int = 0) -> dict:
           "peak_device_gib": peak_gib}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 10: Mixtral-8x7B and DeepSeek-V2 at full width (the moe family)
+# ---------------------------------------------------------------------------
+
+# (config, layers kept of its published depth): the cut that fits the f32
+# weights and the prefill's temporaries on one 80 GB card (Mixtral 8 of 32
+# layers, 44.23 GiB; DeepSeek-V2 2 of 60, 33.50 GiB).
+MOE_CUTS = (("mixtral_8x7b", 8), ("deepseek_v2_236b", 2))
+# Prefill against decode after 32 tokens, at a capacity factor under which
+# no group drops an edge (E / k: an expert may take every token of its
+# group), on every prompt, within the GQA bounds.  In float32 the two paths
+# route alike and are the same arithmetic up to float32 rounding.  In bf16
+# one rounding step of a router logit (attention rounded at other places)
+# moves some tokens to other experts; these routing flips are counted and
+# logged, and the bound holds with them (a flip changes one of k gated
+# terms of one token in one layer).
+MOE_PREFILL_DECODE_TOL = GQA_PREFILL_DECODE_TOL
+MOE_PREFILL_DECODE_F32_TOL = GQA_PREFILL_DECODE_F32_TOL
+# One layer's MoE block in float32 compute: sort against onehot dispatch,
+# and the combine against spmv_coo on the bipartite token-slot graph.  Both
+# sides form the same products and add them in other orders (k terms a
+# token, and zeros): limit 1e-5 of max|y|.
+MOE_CROSS_TOL = 1e-5
+
+
+class RouteRecorder:
+  """For the length of a ``with`` block, wraps the port's
+  ``_route_group_sort`` (which ``moe_forward`` looks up at each call) and
+  records, call by call, which experts each token went to ([G, Tg, E]
+  bool) and how many (token, expert) edges the capacity cut dropped.  The
+  script's own instrument: the package has no such hook."""
+
+  def __init__(self):
+    from repro_torch.models import moe
+    self.moe, self.calls = moe, []
+
+  def __enter__(self):
+    import torch
+    orig = self.orig = self.moe._route_group_sort
+
+    def recording(logits, x, top_k, num_experts, capacity):
+      xe, aux = orig(logits, x, top_k, num_experts, capacity)
+      e_sorted, _, tok_sorted, _, keep = aux
+      g, tg = logits.shape[:2]
+      chosen = torch.zeros((g, tg, num_experts), dtype=torch.bool,
+                           device=logits.device)
+      grp = torch.arange(g, device=logits.device)[:, None]
+      chosen[grp, tok_sorted, e_sorted] = True
+      self.calls.append((chosen, int((~keep).sum())))
+      return xe, aux
+
+    self.moe._route_group_sort = recording
+    return self
+
+  def __exit__(self, *exc):
+    self.moe._route_group_sort = self.orig
+
+
+def moe_prefill_vs_decode(model, params, short) -> dict:
+  """The last position's logits of ``make_prefill`` against 32 decode steps
+  on ``short`` [B, P], with each path's routing recorded: per prompt the
+  max abs error and the (layer, position) pairs routed to other experts;
+  the edges the prefill's groups dropped."""
+  import torch
+  from repro_torch.serve import make_decode_step, make_prefill
+  cfg = model.cfg
+  b, p = short.shape
+  L = cfg.num_layers
+  with RouteRecorder() as rec_p:
+    pre = make_prefill(model)(params, {"tokens": short})
+  pre = pre[:, -1, :cfg.vocab_size].float()
+  step = make_decode_step(model)
+  cache = model.init_cache(b, p)
+  with RouteRecorder() as rec_d:
+    for i in range(p):
+      logits, cache = step(params, short[:, i:i + 1], cache, i)
+  dec = logits[:, -1, :cfg.vocab_size].float()
+  del cache, logits
+  pre_sets = torch.stack([c[0] for c in rec_p.calls])          # [L,B,P,E]
+  dec_sets = torch.stack([
+      torch.cat([rec_d.calls[i * L + layer][0] for i in range(p)], dim=1)
+      for layer in range(L)])
+  flips = (pre_sets != dec_sets).any(-1).sum(dim=(0, 2))      # [B]
+  err = (pre - dec).abs().amax(-1)                             # [B]
+  return {"max_abs_err": float(err.max()),
+          "max_abs_logit": float(pre.abs().max()),
+          "err_by_prompt": err.tolist(), "flips_by_prompt": flips.tolist(),
+          "prefill_dropped_edges": sum(c[1] for c in rec_p.calls),
+          "decode_dropped_edges": sum(c[1] for c in rec_d.calls),
+          "edges": L * b * p * cfg.top_k,
+          "argmax_agree": int((pre.argmax(-1) == dec.argmax(-1)).sum())}
+
+
+def phase_moe(arch: str, num_layers: int, seed: int = 0) -> dict:
+  import torch
+  from repro_torch import configs
+  from repro_torch.core import graph as graphlib
+  from repro_torch.core.spmv import spmv_coo
+  from repro_torch.core.vertex_program import GraphProgram
+  from repro_torch.models import moe as moelib
+  from repro_torch.models import transformer as T
+  from repro_torch.models.common import (embed_lookup, init_params,
+                                         num_params, rms_norm)
+  from repro_torch.models.transformer import build_model
+  from repro_torch.serve import generate, make_decode_step, make_prefill
+
+  full = configs.get_config(arch)
+  cfg = full.scaled(num_layers=num_layers)
+  model = build_model(cfg)
+  vocab, cd = cfg.vocab_size, cfg.compute_dtype
+  k, n_exp = cfg.top_k, cfg.num_experts
+  torch.cuda.reset_peak_memory_stats()
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  t0 = time.perf_counter()
+  params = init_params(model.defs(), gen)
+  torch.cuda.synchronize()
+  t_init = time.perf_counter() - t0
+  n_params = num_params(model.defs())
+  attn_kind = (f"MLA, {cfg.num_heads} heads, kv_lora {cfg.kv_lora_rank}"
+               if cfg.use_mla else
+               f"GQA {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+               f"{cfg.head_dim}, window {cfg.sliding_window}")
+  log(f"phase 10: {cfg.name} cut to {num_layers} of {full.num_layers} "
+      f"layers at its published widths (d_model {cfg.d_model}, {attn_kind}; "
+      f"{n_exp} experts of {cfg.moe_d_ff} top-{k}, "
+      f"{cfg.num_shared_experts} shared; vocab {vocab}): {n_params:,} "
+      f"params, {n_params * 4 / 2**30:.2f} GiB f32, initialized in "
+      f"{t_init:.3f} s")
+
+  b, s, chunk = 4, 2048, 1024
+  tokens = torch.randint(0, vocab, (b, s), generator=gen, device="cuda",
+                         dtype=torch.int32)
+  prefill = make_prefill(model)
+  t0 = time.perf_counter()
+  logits = prefill(params, {"tokens": tokens})
+  torch.cuda.synchronize()
+  t_first = time.perf_counter() - t0
+  if logits.shape != (b, s, cfg.padded_vocab(1)):
+    raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
+  if not torch.isfinite(logits).all():
+    raise AssertionError("prefill logits are not finite")
+  del logits
+  prefill_ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), iters=3,
+                       warmup=1)
+  log(f"phase 10: {cfg.name} prefill {b}x{s} tokens: finite logits; first "
+      f"call {t_first:.3f} s, then {prefill_ms:.2f} ms (CUDA events, mean "
+      f"of 3), {b * s / prefill_ms * 1e3:.0f} prompt tokens/s")
+
+  step = make_decode_step(model)
+  long_cache = model.init_cache(b, 2 * s)
+  tok = tokens[:, :1].contiguous()
+  decode_ms = cuda_ms(lambda: step(params, tok, long_cache, s), iters=5,
+                      warmup=2)
+  busy_prefill = device_busy(lambda: prefill(params, {"tokens": tokens}))
+  log(busy_line(f"phase 10: {cfg.name} prefill {b}x{s}", busy_prefill))
+  busy_decode = device_busy(lambda: step(params, tok, long_cache, s))
+  log(busy_line(f"phase 10: {cfg.name} decode step B={b} at pos {s}",
+                busy_decode))
+  del long_cache
+  log(f"phase 10: {cfg.name} decode step {decode_ms:.2f} ms at B={b}, pos "
+      f"{s} of a {2 * s}-slot cache ({b / decode_ms * 1e3:.1f} tokens/s)")
+
+  # The edges each layer's routing groups drop in the prefill: the layers
+  # stepped one by one, the port's _route_group_sort on each MoE input.
+  tg = min(cfg.moe_group_size, s)
+  groups = b * s // tg
+  cap = moelib._group_capacity(cfg, tg)
+  pos = torch.arange(s, dtype=torch.int32, device="cuda")
+  drops = []
+  with torch.inference_mode():
+    x = embed_lookup(params["embed"], tokens, cd)
+    for i in range(num_layers):
+      lp = T._layer(params["layers"], i)
+      h = T._attn_apply(lp, x, pos, cfg, kv_chunk=chunk)
+      hn = rms_norm(h, lp["ln2"], cfg.norm_eps).reshape(groups, tg, -1)
+      if i == 0:
+        x0, h0, hn0 = x, h, hn
+      lg = torch.einsum("gtd,de->gte", hn, lp["moe"]["router"].to(cd))
+      _, aux = moelib._route_group_sort(lg, hn, k, n_exp, cap)
+      lost = (~aux[4]).sum(dim=-1)                             # [G]
+      drops.append({"layer": i, "share": float(lost.sum()) / (b * s * k),
+                    "worst_group_share": float(lost.max()) / (tg * k)})
+      x, _ = T._ffn_apply(lp, h, cfg)
+    del x, h, hn, lg, aux
+  log(f"phase 10: {cfg.name} dropped (token, expert) edges of the {b}x{s} "
+      f"prefill at capacity_factor {cfg.capacity_factor} ({groups} groups "
+      f"of {tg} tokens, capacity {cap} a group): " + ", ".join(
+          f"layer {d['layer']} {d['share']:.4f} (worst group "
+          f"{d['worst_group_share']:.4f})" for d in drops))
+
+  # The prompts cut to 32 tokens: generate, and prefill against decode at
+  # the config's capacity factor (drops, no bound) and at one under which
+  # nothing drops, in bf16 and in float32 compute.
+  p, new = 32, 16
+  short = tokens[:, :p].contiguous()
+  out = generate(model, params, short, max_new=new)
+  torch.cuda.synchronize()
+  if out.shape != (b, p + new) or not torch.equal(out[:, :p], short):
+    raise AssertionError(f"generate returned {tuple(out.shape)}")
+  if not ((out >= 0) & (out < vocab)).all():
+    raise AssertionError("generated token out of range")
+  at_cfg = moe_prefill_vs_decode(model, params, short)
+  log(f"phase 10: {cfg.name} generate: {new} tokens; prefill vs decode "
+      f"after {p} tokens at capacity_factor {cfg.capacity_factor}: max abs "
+      f"err {at_cfg['max_abs_err']:.4g}, max|logit| "
+      f"{at_cfg['max_abs_logit']:.4g}; the prefill dropped "
+      f"{at_cfg['prefill_dropped_edges']} of {at_cfg['edges']} edges, decode "
+      f"{at_cfg['decode_dropped_edges']}; routing flips by prompt "
+      f"{at_cfg['flips_by_prompt']} (no bound: capacity drops)")
+  nd_factor = n_exp / k
+  nodrop = {}
+  for dtype, tol in (("bfloat16", MOE_PREFILL_DECODE_TOL),
+                     ("float32", MOE_PREFILL_DECODE_F32_TOL)):
+    m = build_model(cfg.scaled(capacity_factor=nd_factor, dtype=dtype))
+    r = nodrop[dtype] = moe_prefill_vs_decode(m, params, short)
+    log(f"phase 10: {cfg.name} {dtype}, capacity_factor {nd_factor:g}: "
+        f"prefill vs decode after {p} tokens: max abs err "
+        f"{r['max_abs_err']:.4g}, max|logit| {r['max_abs_logit']:.4g} "
+        f"({r['max_abs_err'] / r['max_abs_logit']:.4g} of it; tolerance "
+        f"{tol}); dropped {r['prefill_dropped_edges']} and "
+        f"{r['decode_dropped_edges']} edges; routing flips by prompt "
+        f"{r['flips_by_prompt']}; argmax equal for {r['argmax_agree']}/{b}")
+    if r["prefill_dropped_edges"] or r["decode_dropped_edges"]:
+      raise AssertionError(f"{dtype}: edges dropped at capacity_factor "
+                           f"{nd_factor}")
+    if r["max_abs_err"] > tol * r["max_abs_logit"]:
+      raise AssertionError(f"{dtype} prefill and decode logits disagree")
+
+  # One layer at the prefill's shape: its blocks, then the MoE block's
+  # cross-checks in float32 compute.
+  lp0 = T._layer(params["layers"], 0)
+  mp = lp0["moe"]
+  with torch.inference_mode():
+    def route():
+      lg = torch.einsum("gtd,de->gte", hn0, mp["router"].to(cd))
+      return moelib._route_group_sort(lg, hn0, k, n_exp, cap)
+
+    xe, aux = route()
+    ye = moelib._experts(mp, xe, cfg)
+    attn_ms = cuda_ms(lambda: T._attn_apply(lp0, x0, pos, cfg,
+                                            kv_chunk=chunk), iters=3, warmup=1)
+    route_ms = cuda_ms(route, iters=3, warmup=1)
+    experts_ms = cuda_ms(lambda: moelib._experts(mp, xe, cfg), iters=3,
+                         warmup=1)
+    combine_ms = cuda_ms(lambda: moelib._combine_group_sort(ye, aux, tg),
+                         iters=3, warmup=1)
+    ffn_ms = cuda_ms(lambda: T._ffn_apply(lp0, h0, cfg), iters=3, warmup=1)
+    cast_ms = cuda_ms(lambda: [mp[w].to(cd) for w in ("w_gate", "w_up",
+                                                      "w_down")],
+                      iters=3, warmup=1)
+    del xe, aux, ye
+
+    cfg32 = cfg.scaled(dtype="float32")
+    hn32 = hn0.float()
+    y_sort = moelib.moe_forward(mp, hn32.reshape(b, s, -1), cfg32,
+                                group_size=tg, moe_impl="sort")
+    y_oh = moelib.moe_forward(mp, hn32.reshape(b, s, -1), cfg32,
+                              group_size=tg, moe_impl="onehot")
+    y_scale = float(y_sort.abs().max())
+    so_err = float((y_sort - y_oh).abs().max())
+    del y_sort, y_oh
+    lg32 = torch.einsum("gtd,de->gte", hn32, mp["router"])
+    xe, aux = moelib._route_group_sort(lg32, hn32, k, n_exp, cap)
+    ye = moelib._experts(mp, xe, cfg32)
+    y_comb = moelib._combine_group_sort(ye, aux, tg).reshape(b * s, -1)
+    # The bipartite graph: vertices [0, B·S) are tokens, then one per
+    # (group, expert, slot); an edge slot -> token per kept edge, valued
+    # by its gate.
+    e_sorted, slot_pos, tok_sorted, gate_sorted, keep = aux
+    grp = torch.arange(groups, device="cuda")[:, None]
+    src = b * s + (grp * n_exp + e_sorted) * cap + slot_pos
+    dst = grp * tg + tok_sorted
+    kept = keep.reshape(-1)
+    n_vert = b * s + groups * n_exp * cap
+    g = graphlib.build_coo(src.reshape(-1)[kept].cpu().numpy(),
+                           dst.reshape(-1)[kept].cpu().numpy(),
+                           gate_sorted.reshape(-1)[kept].cpu().numpy(),
+                           n=n_vert)
+    msg = torch.cat([torch.zeros((b * s, cfg.d_model), device="cuda"),
+                     ye.reshape(-1, cfg.d_model)])
+    prog = GraphProgram(process_message=lambda m, ev, dp: m * ev,
+                        reduce_kind="add", process_reads_dst=False)
+    y_spmv, _ = spmv_coo(g, msg, torch.ones(n_vert, dtype=torch.bool,
+                                            device="cuda"), msg, prog)
+    comb_scale = float(y_comb.abs().max())
+    cs_err = float((y_spmv[:b * s] - y_comb).abs().max())
+    n_edges = int(kept.sum())
+    del lg32, xe, aux, ye, y_comb, msg, y_spmv, g, hn32
+  log(f"phase 10: {cfg.name} one layer at {b}x{s}: attention block "
+      f"{attn_ms:.2f} ms; MoE block {ffn_ms:.2f} ms, of it routing and "
+      f"dispatch {route_ms:.2f}, expert GEMMs {experts_ms:.2f} (the f32->bf16 "
+      f"cast of the expert weights {cast_ms:.2f} of it), combine "
+      f"{combine_ms:.2f}")
+  log(f"phase 10: {cfg.name} layer 0 in float32: sort vs onehot dispatch "
+      f"max abs err {so_err:.4g} (max|y| {y_scale:.4g}, tolerance "
+      f"{MOE_CROSS_TOL} of it); combine vs spmv_coo (PLUS_TIMES on the "
+      f"bipartite graph, {n_vert:,} vertices, {n_edges:,} kept edges) max "
+      f"abs err {cs_err:.4g} (max|y| {comb_scale:.4g})")
+  if not so_err <= MOE_CROSS_TOL * y_scale:
+    raise AssertionError(f"sort != onehot dispatch ({so_err:.4g})")
+  if not cs_err <= MOE_CROSS_TOL * comb_scale:
+    raise AssertionError(f"combine != spmv_coo ({cs_err:.4g})")
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  log(f"phase 10: {cfg.name} peak device memory {peak_gib:.2f} GiB")
+  return {"config": cfg.name, "num_layers": num_layers,
+          "published_layers": full.num_layers, "params": n_params,
+          "init_s": t_init, "prefill_batch": [b, s], "kv_chunk": chunk,
+          "prefill_first_s": t_first, "prefill_ms": prefill_ms,
+          "prefill_tokens_per_s": b * s / prefill_ms * 1e3,
+          "decode_step_ms": decode_ms, "decode_batch": b, "decode_pos": s,
+          "decode_cache_slots": 2 * s, "prefill_profile": busy_prefill,
+          "decode_profile": busy_decode, "group_tokens": tg,
+          "capacity": cap, "dropped_edges": drops,
+          "prefill_vs_decode_at_config": at_cfg,
+          "no_drop_capacity_factor": nd_factor,
+          "prefill_vs_decode_no_drop": nodrop,
+          "layer_attention_block_ms": attn_ms, "layer_moe_block_ms": ffn_ms,
+          "layer_route_dispatch_ms": route_ms,
+          "layer_expert_gemms_ms": experts_ms,
+          "layer_expert_weight_cast_ms": cast_ms,
+          "layer_combine_ms": combine_ms,
+          "sort_onehot_max_abs_err": so_err, "moe_max_abs_y": y_scale,
+          "combine_spmv_max_abs_err": cs_err,
+          "combine_max_abs_y": comb_scale, "bipartite_vertices": n_vert,
+          "bipartite_edges": n_edges, "peak_device_gib": peak_gib}
+
+
 def main(argv=None) -> int:
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   ap.add_argument("--scale", type=int, default=20,
@@ -1960,6 +2306,22 @@ def main(argv=None) -> int:
                                 "selective_scan": ss_mod.launches}
   log("phase 9: kernel launches on the dense path (none is owed) "
       + json.dumps(granite["kernel_launches"]))
+  torch.cuda.empty_cache()  # Granite's weights went with its phase
+  ell_mod.launches.reset()
+  ss_mod.launches = 0
+  t0 = time.perf_counter()
+  moe = {}
+  for arch, layers in MOE_CUTS:
+    moe[arch] = phase_moe(arch, layers)
+    torch.cuda.empty_cache()
+  log(f"phase 10: took {time.perf_counter() - t0:.1f} s")
+  moe_launches = {"ell_spmv": ell_mod.launches.total,
+                  "selective_scan": ss_mod.launches}
+  log("phase 10: kernel launches on the moe path (none is owed) "
+      + json.dumps(moe_launches))
+  if any(moe_launches.values()):
+    raise AssertionError("phase 10: a kernel was launched on the moe path")
+  moe["kernel_launches"] = moe_launches
   b, s, _, _ = FALCON_SCAN
   entries.append({
       "name": f"selective_scan[falcon-mamba-7b,f32,B={b},S={s}]",
@@ -1977,7 +2339,7 @@ def main(argv=None) -> int:
       "kernels": entries, "ell_array_bound_ms": array_bounds,
       "ell_ms_by_frontier": by_frontier, "superstep_split": split,
       "suite": suite, "scan": scan, "lm": lm, "dist2d": dist2d,
-      "granite": granite}, indent=1))
+      "granite": granite, "moe": moe}, indent=1))
   log(card)
   print(json.dumps({"kernels": entries}), flush=True)
   print(json.dumps({"ok": True, "device": {

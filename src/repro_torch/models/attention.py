@@ -1,15 +1,16 @@
-"""Grouped-query attention (+QKV bias, +sliding window): the GQA part of
-:mod:`repro.models.attention`.
+"""Grouped-query attention (+QKV bias, +sliding window) and multi-head
+latent attention (MLA, DeepSeek-V2): the port of :mod:`repro.models.attention`.
 
 Sequence-level attention is the reference's **chunked online softmax**: a
 loop over KV chunks with a running (max, denominator, accumulator) in
 float32, written as torch ops, one chunk at a time.  Every chunk is
-computed, the fully masked ones too, as in the reference.  Decode attends
-over a ring-buffer cache without repeating the KV heads.
+computed, the fully masked ones too, as in the reference.  GQA decode
+attends over a ring-buffer cache without repeating the KV heads; MLA
+decode attends over the compressed latent cache with the up-projections
+absorbed into the query and the output.
 
 There is one device and no mesh, so Q heads are padded for a tensor axis
-of 1 (``cfg.padded_heads(1)``, the published head count).  MLA waits for
-the port of the ``moe`` family (ROADMAP.md Queue 1, item 6.2).
+of 1 (``cfg.padded_heads(1)``, the published head count).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import ParamDef, apply_rope, out_proj_einsum
+from repro_torch.models.common import (ParamDef, apply_rope, out_proj_einsum,
+                                       rms_norm)
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -225,3 +227,115 @@ def gqa_decode(params, x: Tensor, cache: Dict[str, Tensor], pos,
   out = out_proj_einsum("bsh,hd->bsd", out.reshape(x.shape[0], 1, -1),
                         params["wo"], cfg)
   return out, {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# MLA (Multi-head Latent Attention, DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def mla_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+  d = cfg.d_model
+  hp = cfg.padded_heads(1)
+  qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+  return {
+      "wq_a": ParamDef((d, cfg.q_lora_rank)),
+      "q_norm": ParamDef((cfg.q_lora_rank,), init="ones"),
+      "wq_b": ParamDef((cfg.q_lora_rank, hp * qk)),
+      "wkv_a": ParamDef((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim)),
+      "kv_norm": ParamDef((cfg.kv_lora_rank,), init="ones"),
+      "wk_b": ParamDef((cfg.kv_lora_rank, hp * cfg.qk_nope_head_dim)),
+      "wv_b": ParamDef((cfg.kv_lora_rank, hp * cfg.v_head_dim)),
+      "wo": ParamDef((hp * cfg.v_head_dim, d)),
+  }
+
+
+def _mla_q(params, x: Tensor, positions: Tensor, cfg: ModelConfig
+           ) -> Tuple[Tensor, Tensor]:
+  """x [B,S,d] -> (q_nope [B,S,H,nope], roped q_rope [B,S,H,rope])."""
+  cd = cfg.compute_dtype
+  b, s, _ = x.shape
+  nope, rope_d = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+  ql = torch.matmul(x, params["wq_a"].to(cd))
+  ql = rms_norm(ql, params["q_norm"], cfg.norm_eps)
+  q = torch.matmul(ql, params["wq_b"].to(cd))
+  q = q.reshape(b, s, cfg.padded_heads(1), nope + rope_d)
+  q_nope, q_rope = q[..., :nope], q[..., nope:]
+  return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(params, x: Tensor, positions: Tensor, cfg: ModelConfig
+             ) -> Tuple[Tensor, Tensor]:
+  """x [B,S,d] -> (c_kv [B,S,R] normed, k_rope [B,S,rope] roped): the
+  latent that the decode cache keeps."""
+  kv = torch.matmul(x, params["wkv_a"].to(cfg.compute_dtype))
+  c_kv, k_rope = kv[..., :cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
+  c_kv = rms_norm(c_kv, params["kv_norm"], cfg.norm_eps)
+  k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+  return c_kv, k_rope[:, :, 0, :]
+
+
+def mla_forward(params, x: Tensor, positions: Tensor, cfg: ModelConfig, *,
+                causal: bool = True, kv_chunk: int = 1024) -> Tensor:
+  """Full-sequence MLA (prefill): decompress K and V from the latent, join
+  the nope and rope parts into one score space, pad V to the QK head
+  dimension for the shared chunked attention, and slice the output back
+  to ``v_head_dim``."""
+  cd = cfg.compute_dtype
+  b, s, _ = x.shape
+  hp = cfg.padded_heads(1)
+  nope, rope_d, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+  q_nope, q_rope = _mla_q(params, x, positions, cfg)
+  c_kv, k_rope = _mla_ckv(params, x, positions, cfg)
+  k_nope = torch.matmul(c_kv, params["wk_b"].to(cd)).reshape(b, s, hp, nope)
+  v = torch.matmul(c_kv, params["wv_b"].to(cd)).reshape(b, s, hp, vd)
+  q = torch.cat([q_nope, q_rope], dim=-1)
+  k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, hp, rope_d)],
+                dim=-1)
+  v_p = torch.nn.functional.pad(v, (0, q.shape[-1] - vd))
+  out = chunked_attention(q, k, v_p, positions, positions, causal=causal,
+                          kv_chunk=kv_chunk,
+                          scale=1.0 / math.sqrt(nope + rope_d))[..., :vd]
+  return out_proj_einsum("bsh,hd->bsd", out.reshape(b, s, hp * vd),
+                         params["wo"], cfg)
+
+
+def mla_decode(params, x: Tensor, cache: Dict[str, Tensor], pos,
+               cfg: ModelConfig) -> Tuple[Tensor, Dict[str, Tensor]]:
+  """Weight-absorbed MLA decode over the *compressed* cache.
+
+  cache: {"c_kv": [B,T,R], "k_rope": [B,T,Dr]} — the MLA memory win.
+  score = q_nopeᵀ·(Wk_b c) + q_ropeᵀ·k_rope = (Wk_bᵀ q_nope)ᵀ·c + …, in
+  float32 from the compute-dtype weights, as in the reference.  The cache
+  is not a ring: the token goes to slot ``pos`` clamped into [0, T-1] (the
+  reference's ``dynamic_update_slice`` clamps its start), and every slot
+  at a position ≤ ``pos`` is attended.  The cache passed in is left as it
+  was.  Returns (out [B,1,d], updated cache)."""
+  cd = cfg.compute_dtype
+  b = x.shape[0]
+  hp = cfg.padded_heads(1)
+  nope, vd, r = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+  pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+  positions = pos.reshape(1)
+  q_nope, q_rope = _mla_q(params, x, positions, cfg)           # [B,1,H,*]
+  c_kv, k_rope = _mla_ckv(params, x, positions, cfg)           # [B,1,*]
+  t = cache["c_kv"].shape[1]
+  slot = torch.clamp(positions, 0, t - 1).long()
+  cc = cache["c_kv"].index_copy(1, slot, c_kv)
+  cr = cache["k_rope"].index_copy(1, slot, k_rope)
+  wk_b = params["wk_b"].to(cd).reshape(r, hp, nope).float()
+  q_abs = torch.einsum("bshn,rhn->bshr", q_nope.float(), wk_b)  # [B,1,H,R]
+  scale = 1.0 / math.sqrt(nope + cfg.qk_rope_head_dim)
+  sc = (torch.einsum("bshr,btr->bsht", q_abs, cc.float())
+        + torch.einsum("bshd,btd->bsht", q_rope.float(), cr.float())) * scale
+  k_pos = torch.arange(t, dtype=torch.int32, device=x.device)
+  mask = causal_swa_mask(positions, k_pos, 0, True)
+  sc = torch.where(mask[None, :, None, :], sc, NEG_INF)
+  p = torch.softmax(sc, dim=-1)
+  ctx = torch.einsum("bsht,btr->bshr", p, cc.float())          # [B,1,H,R]
+  wv_b = params["wv_b"].to(cd).reshape(r, hp, vd).float()
+  out = torch.einsum("bshr,rhv->bshv", ctx, wv_b)
+  out = out.reshape(b, 1, hp * vd).to(cd)
+  out = out_proj_einsum("bsh,hd->bsd", out, params["wo"], cfg)
+  return out, {"c_kv": cc, "k_rope": cr}

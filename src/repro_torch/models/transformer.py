@@ -1,5 +1,5 @@
-"""Model assembly: the ``"dense"`` (GQA decoder) and ``"ssm"`` (Mamba-1)
-families.
+"""Model assembly: the ``"dense"`` (GQA or MLA decoder), ``"moe"`` (GQA or
+MLA attention + routed experts) and ``"ssm"`` (Mamba-1) families.
 
 The port of :mod:`repro.models.transformer` for the families ported so
 far.  Layer parameters keep the reference's stacked ``[num_layers, ...]``
@@ -8,7 +8,7 @@ layer index.  Remat is a training matter and has no place here.
 
 The public surface is :class:`Model` (closures over config):
   * ``defs()``            — nested ParamDef tree
-  * ``forward``           — full-sequence logits (+ an aux scalar, 0 here)
+  * ``forward``           — full-sequence logits (+ the MoE aux loss)
   * ``init_cache``        — decode-state tree of zeros
   * ``decode_step``       — one-token serving step
 """
@@ -24,6 +24,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._tree import tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffnlib
+from repro_torch.models import moe as moelib
 from repro_torch.models import ssm as ssmlib
 from repro_torch.models.common import (ParamDef, embed_lookup, rms_norm,
                                        unembed)
@@ -33,8 +34,8 @@ PyTree = Any
 Tensor = torch.Tensor
 
 # The ROADMAP item (Queue 1) that ports each family not ported yet.
-_FAMILY_ITEM = {"vlm": "6.4", "moe": "6.2", "hybrid": "6.3", "encdec": "6.4"}
-_PORTED = ("dense", "ssm")
+_FAMILY_ITEM = {"vlm": "6.4", "hybrid": "6.3", "encdec": "6.4"}
+_PORTED = ("dense", "moe", "ssm")
 
 
 # ---------------------------------------------------------------------------
@@ -81,30 +82,44 @@ def scan_layers_cache(stacked_params: PyTree, cache: PyTree, x: Tensor,
 
 
 def _attn_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
-  return {"ln1": ParamDef((cfg.d_model,), init="ones"),
-          "attn": attn.gqa_defs(cfg)}
+  a = attn.mla_defs(cfg) if cfg.use_mla else attn.gqa_defs(cfg)
+  return {"ln1": ParamDef((cfg.d_model,), init="ones"), "attn": a}
 
 
 def _attn_apply(params, x, positions, cfg, *, causal=True, kv_chunk=1024):
   h = rms_norm(x, params["ln1"], cfg.norm_eps)
-  return x + attn.gqa_forward(params["attn"], h, positions, cfg,
-                              causal=causal, kv_chunk=kv_chunk)
+  fwd = attn.mla_forward if cfg.use_mla else attn.gqa_forward
+  return x + fwd(params["attn"], h, positions, cfg, causal=causal,
+                 kv_chunk=kv_chunk)
 
 
 def _attn_apply_decode(params, x, cache, pos, cfg):
   h = rms_norm(x, params["ln1"], cfg.norm_eps)
-  out, cache = attn.gqa_decode(params["attn"], h, cache, pos, cfg)
+  dec = attn.mla_decode if cfg.use_mla else attn.gqa_decode
+  out, cache = dec(params["attn"], h, cache, pos, cfg)
   return x + out, cache
 
 
 def _ffn_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
+  if cfg.family == "moe":
+    return {"ln2": ParamDef((cfg.d_model,), init="ones"),
+            "moe": moelib.moe_defs(cfg)}
   return {"ln2": ParamDef((cfg.d_model,), init="ones"),
           "mlp": ffnlib.swiglu_defs(cfg.d_model, cfg.d_ff)}
 
 
 def _ffn_apply(params, x, cfg):
+  """Returns (x + the block's output, aux): the MoE load-balancing loss of
+  router logits in the compute dtype, or 0.0."""
   h = rms_norm(x, params["ln2"], cfg.norm_eps)
-  return x + ffnlib.swiglu(params["mlp"], h, cfg), 0.0
+  if cfg.family != "moe":
+    return x + ffnlib.swiglu(params["mlp"], h, cfg), 0.0
+  mp = params["moe"]
+  logits = torch.matmul(h, mp["router"].to(cfg.compute_dtype))
+  aux = moelib.moe_aux_loss(logits, cfg.top_k, cfg.num_experts)
+  out = moelib.moe_forward(mp, h, cfg, group_size=cfg.moe_group_size,
+                           moe_impl=cfg.moe_impl)
+  return x + out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -122,12 +137,8 @@ class Model:
       item = _FAMILY_ITEM.get(fam, "6")
       raise NotImplementedError(
           f"family {fam!r} is not ported yet (ROADMAP.md Queue 1, item "
-          f"{item}); the port serves the 'dense' (GQA) and 'ssm' (Mamba-1) "
+          f"{item}); the port serves the 'dense', 'moe' and 'ssm' (Mamba-1) "
           "families")
-    if self.cfg.use_mla:
-      raise NotImplementedError(
-          "multi-head latent attention (use_mla) is not ported yet "
-          "(ROADMAP.md Queue 1, item 6.2)")
 
   # ---------------- defs ----------------
 
@@ -138,7 +149,7 @@ class Model:
          "ln_f": ParamDef((cfg.d_model,), init="ones")}
     if not cfg.tie_embeddings:
       d["lm_head"] = ParamDef((cfg.d_model, vpad))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
       layer = {**_attn_block_defs(cfg), **_ffn_block_defs(cfg)}
     else:
       layer = {"ln1": ParamDef((cfg.d_model,), init="ones"),
@@ -154,12 +165,13 @@ class Model:
 
   def forward(self, params, batch: Dict[str, Tensor], *,
               kv_chunk: int = 1024) -> Tuple[Tensor, Tensor]:
-    """Returns (logits [B,S,Vpad], aux scalar).  ``kv_chunk``: keys per
-    chunk of the dense family's online softmax."""
+    """Returns (logits [B,S,Vpad], aux scalar: the MoE aux loss summed over
+    layers, 0 for the other families).  ``kv_chunk``: keys per chunk of
+    the attention's online softmax."""
     cfg = self.cfg
     x = self.embed_inputs(params, batch)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
       positions = torch.arange(x.shape[1], dtype=torch.int32,
                                device=x.device)
 
@@ -184,22 +196,29 @@ class Model:
 
   def init_cache(self, batch_size: int, max_seq: int, *,
                  device: DeviceLike = "cuda") -> PyTree:
-    """Decode state.  Dense: per layer a K and a V ring of ``min(max_seq,
-    sliding_window)`` slots (``max_seq`` without a window).  SSM: per layer
-    the last K-1 conv inputs and the SSM state (its size does not grow with
-    ``max_seq``)."""
+    """Decode state.  Dense and MoE: per layer a K and a V ring of
+    ``min(max_seq, sliding_window)`` slots (``max_seq`` without a window),
+    or with MLA the latent ``c_kv`` and ``k_rope`` of ``max_seq`` slots (not
+    a ring).  SSM: per layer the last K-1 conv inputs and the SSM state (its
+    size does not grow with ``max_seq``)."""
     cfg = self.cfg
     dev = resolve_device(device)
     L, B = cfg.num_layers, batch_size
-    if cfg.family == "dense":
+    cd = cfg.compute_dtype
+    if cfg.use_mla:
+      return {"c_kv": torch.zeros((L, B, max_seq, cfg.kv_lora_rank),
+                                  dtype=cd, device=dev),
+              "k_rope": torch.zeros((L, B, max_seq, cfg.qk_rope_head_dim),
+                                    dtype=cd, device=dev)}
+    if cfg.family in ("dense", "moe"):
       t = (min(max_seq, cfg.sliding_window) if cfg.sliding_window
            else max_seq)
       shape = (L, B, t, cfg.num_kv_heads, cfg.resolved_head_dim)
-      return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-              "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev)}
+      return {"k": torch.zeros(shape, dtype=cd, device=dev),
+              "v": torch.zeros(shape, dtype=cd, device=dev)}
     d_inner, _, n = ssmlib.mamba1_dims(cfg)
     return {"conv": torch.zeros((L, B, cfg.ssm_conv - 1, d_inner),
-                                dtype=cfg.compute_dtype, device=dev),
+                                dtype=cd, device=dev),
             "h": torch.zeros((L, B, d_inner, n), dtype=torch.float32,
                              device=dev)}
 
@@ -211,7 +230,7 @@ class Model:
     cfg = self.cfg
     x = embed_lookup(params["embed"], token, cfg.compute_dtype)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
       pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
 
       def block(lp, c, h):

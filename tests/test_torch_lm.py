@@ -170,16 +170,30 @@ def test_init_params_follows_the_defs():
   assert abs(float(lay["in_proj_u"].std()) - 0.125) < 0.01
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "encdec", "vlm",
-                                    "dense+mla"])
+@pytest.mark.parametrize("family", ["hybrid", "encdec", "vlm"])
 def test_other_families_name_their_roadmap_item(family):
-  arch, item = {"moe": ("mixtral_8x7b", "6.2"), "hybrid": ("zamba2_7b", "6.3"),
+  arch, item = {"hybrid": ("zamba2_7b", "6.3"),
                 "encdec": ("seamless_m4t_medium", "6.4"),
-                "vlm": ("internvl2_26b", "6.4"),
-                "dense+mla": ("granite_8b", "6.2")}[family]
+                "vlm": ("internvl2_26b", "6.4")}[family]
   cfg = TC.get_smoke_config(arch)
-  if family == "dense+mla":  # a dense config with latent attention
-    cfg = cfg.scaled(use_mla=True)
   with pytest.raises(NotImplementedError,
                      match=rf"ROADMAP.md Queue 1, item {item}\)"):
     build_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "deepseek_v2_236b",
+                                  "granite_8b+mla"])
+def test_moe_and_mla_configs_build(arch):
+  """The MoE family and latent attention are ported: ``build_model``
+  accepts both MoE configs and a dense config with ``use_mla``, and their
+  ``defs()`` are the reference's tree."""
+  name, _, mla = arch.partition("+")
+  over = {"use_mla": True} if mla else {}
+  cfg = TC.get_smoke_config(name).scaled(**over)
+  want = j_build_model(JC.get_smoke_config(name).scaled(**over), tp=1).defs()
+  got = build_model(cfg).defs()
+  assert jax.tree_util.tree_map(
+      lambda d: tuple(d.shape), got,
+      is_leaf=lambda d: isinstance(d, tcommon.ParamDef)) == \
+      jax.tree_util.tree_map(lambda d: tuple(d.shape), want,
+                             is_leaf=jcommon.is_param_def)
