@@ -88,6 +88,22 @@ Phases, in order; any failure exits non-zero before the result line:
    tensors, in float32, sort against onehot dispatch and the combine
    against ``spmv_coo`` on the token→expert bipartite ``CooGraph``; no
    kernel is launched (none is owed there);
+11. serve the hybrid, encdec and vlm families at published widths (random
+   float32 weights, bf16 compute), one model after another, each freed
+   before the next: Zamba2-7B (all 81 layers: 13 segments of the shared
+   attention block and 6 Mamba-2 blocks, then 3), SeamlessM4T-medium (12
+   encoder + 12 decoder layers; a memory of 4 × 4,096 stub frames) and
+   InternVL2-26B (24 of 48 layers; 256 stub vision embeddings + 1,792
+   tokens a sequence), each as phase 9 serves Granite (a 4 × 2,048
+   prefill, a decode step at position 2,048, 16 greedy tokens, profiler
+   passes, peak memory); prefill against decode on the 32-token prompts
+   (Zamba2 in bf16 and float32; SeamlessM4T as configured, reported beside
+   the zero cross cache, and with every ``xattn.wo`` zeroed; InternVL2 with
+   the image prefix, reported, and with none); one layer's blocks at the
+   prefill shape (Zamba2: the Mamba-2 block and its three parts, the
+   shared block; SeamlessM4T: an encoder layer, a decoder layer's self
+   and cross attention and SwiGLU; InternVL2: attention and SwiGLU); no
+   kernel is launched (none is owed there);
 
 then the ``{"kernels": [...]}`` line, the card line and last ``{"ok": true,
 "device": {...}}``.  Detail that is too long for the end of the output goes
@@ -116,7 +132,11 @@ dense attention within ``CHUNKED_DENSE_TOL`` times max|out|.  The moe
 family: with no capacity drops, prefill against decode within
 ``MOE_PREFILL_DECODE_TOL`` (bf16) and ``MOE_PREFILL_DECODE_F32_TOL``
 (float32) times max|logit| (see their comment); sort against onehot and the combine against ``spmv_coo``
-within ``MOE_CROSS_TOL`` times max|y|.
+within ``MOE_CROSS_TOL`` times max|y|.  Phase 11: Zamba2's prefill against
+decode within ``HYBRID_PREFILL_DECODE_TOL`` (bf16) and
+``HYBRID_PREFILL_DECODE_F32_TOL`` (float32) times max|logit|; SeamlessM4T
+with ``xattn.wo`` zeroed and InternVL2 with no image within
+``FRONTEND_FREE_PREFILL_DECODE_TOL`` (see their comments).
 """
 
 from __future__ import annotations
@@ -2230,6 +2250,301 @@ def phase_moe(arch: str, num_layers: int, seed: int = 0) -> dict:
           "bipartite_edges": n_edges, "peak_device_gib": peak_gib}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: Zamba2-7B, SeamlessM4T-medium and InternVL2-26B at full width
+# (the hybrid, encdec and vlm families)
+# ---------------------------------------------------------------------------
+
+# (config, layers kept of its published depth, None = all): Zamba2-7B's
+# 25.15 GiB and SeamlessM4T-medium's 3.64 GiB of f32 weights fit whole;
+# InternVL2-26B's 73.99 GiB do not leave room for a prefill, so 24 of its
+# 48 layers run (39.12 GiB).
+FAMILY_CUTS = (("zamba2_7b", None), ("seamless_m4t_medium", None),
+               ("internvl2_26b", 24))
+# The stub frontends' outputs are drawn N(0, 1) and scaled as the
+# reference's training data scales them (src/repro/train/data.py:39-40 and
+# :46-49).
+FRONTEND_SCALE = 0.02
+# Zamba2 prefill against decode after 32 tokens, in bf16: 94 blocks (81
+# Mamba-2, the shared block 13 times) round to bf16 at other places in the
+# two paths (the SSD's chunked matmuls against the one-token recurrence,
+# [4, 32]-row against [4, 1]-row matmuls).  Falcon's Mamba-1 reading grew
+# about linearly with depth (1.0% of max|logit| at 4 layers, 6.2% at 64, on
+# an H100), which puts 94 blocks near 9%; the limit is set above that,
+# before the first run.  The float32 check binds the arithmetic: there the
+# two paths differ only by float32 rounding.
+HYBRID_PREFILL_DECODE_TOL = 0.12
+HYBRID_PREFILL_DECODE_F32_TOL = GQA_PREFILL_DECODE_F32_TOL
+# SeamlessM4T with every xattn.wo zeroed, and InternVL2 with no vision
+# embeddings, are the dense decoder's comparison (12 and 24 layers against
+# Granite's 36): the GQA bound.  As configured (the memory, or an image
+# prefix), decode cannot see the frontend (ROADMAP Queue 3, item 9): the
+# gap is reported with no bound.
+FRONTEND_FREE_PREFILL_DECODE_TOL = GQA_PREFILL_DECODE_TOL
+
+
+def prefill_vs_decode(model, params, batch) -> dict:
+  """The last position's logits of ``make_prefill`` on ``batch`` against
+  decoding its tokens one by one from an empty cache: the max abs error,
+  max|logit|, the argmax agreement and, for encdec, max|ck| of the final
+  cache."""
+  import torch
+  from repro_torch.serve import make_decode_step, make_prefill
+  vocab = model.cfg.vocab_size
+  short = batch["tokens"]
+  b, p = short.shape
+  pre = make_prefill(model)(params, batch)[:, -1, :vocab].float()
+  step = make_decode_step(model)
+  cache = model.init_cache(b, p)
+  for i in range(p):
+    logits, cache = step(params, short[:, i:i + 1], cache, i)
+  dec = logits[:, -1, :vocab].float()
+  if not (torch.isfinite(pre).all() and torch.isfinite(dec).all()):
+    raise AssertionError("prefill or decode logits are not finite")
+  err = float((pre - dec).abs().max())
+  top2 = torch.topk(pre, 2, dim=-1).values
+  sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+  agree = pre.argmax(-1) == dec.argmax(-1)
+  out = {"max_abs_err": err, "max_abs_logit": float(pre.abs().max()),
+         "argmax_agree": int(agree.sum()), "argmax_sure": int(sure.sum()),
+         "argmax_agree_where_sure": bool(agree[sure].all())}
+  if "ck" in cache:
+    out["max_abs_ck"] = float(cache["ck"].abs().max())
+  return out
+
+
+def pvd_line(what: str, r: dict, tol) -> str:
+  bound = "no bound" if tol is None else f"tolerance {tol}"
+  ck = (f", max|ck| of the decode cache {r['max_abs_ck']:.4g}"
+        if "max_abs_ck" in r else "")
+  return (f"{what}: max abs err {r['max_abs_err']:.4g}, max|logit| "
+          f"{r['max_abs_logit']:.4g} ({r['max_abs_err'] / r['max_abs_logit']:.4g}"
+          f" of it; {bound}); argmax equal for {r['argmax_agree']}/4 "
+          f"({r['argmax_sure']} with a top-2 margin above twice the error)"
+          f"{ck}")
+
+
+def check_pvd(r: dict, tol: float, what: str) -> None:
+  if r["max_abs_err"] > tol * r["max_abs_logit"]:
+    raise AssertionError(f"{what}: prefill and decode logits disagree")
+  if not r["argmax_agree_where_sure"]:
+    raise AssertionError(f"{what}: argmax differs where the top-2 margin "
+                         "exceeds twice the error")
+
+
+def ssd_work(b: int, s: int, cfg) -> dict:
+  """The SSD's einsum FLOPs at [B, S] (counted as the reference forms them)
+  and the float32 bytes of one [B, nc, C, C, H] temporary."""
+  from repro_torch.models.ssm import mamba2_dims
+  _, h, p, n = mamba2_dims(cfg)
+  c = min(cfg.ssm_chunk, s)
+  nc = s // c
+  flops = 2 * b * nc * c * (c * n + c * h * p + 2 * h * n * p)
+  return {"einsum_flops": flops, "temporary_bytes": 4 * b * nc * c * c * h}
+
+
+def phase_family(arch: str, num_layers, seed: int = 0) -> dict:
+  import torch
+  from repro_torch import configs
+  from repro_torch.models import ssm as ssmlib
+  from repro_torch.models import transformer as T
+  from repro_torch.models.common import init_params, num_params, rms_norm
+  from repro_torch.models.transformer import build_model
+  from repro_torch.serve import generate, make_decode_step, make_prefill
+
+  full = configs.get_config(arch)
+  cfg = full if num_layers is None else full.scaled(num_layers=num_layers)
+  model = build_model(cfg)
+  fam, vocab, cd, d = cfg.family, cfg.vocab_size, cfg.compute_dtype, cfg.d_model
+  torch.cuda.reset_peak_memory_stats()
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  t0 = time.perf_counter()
+  params = init_params(model.defs(), gen)
+  torch.cuda.synchronize()
+  t_init = time.perf_counter() - t0
+  n_params = num_params(model.defs())
+  if fam == "hybrid":
+    seg, per, tail = model._hybrid_split()
+    shape = (f"{seg} segments of the shared attention block ({cfg.num_heads}"
+             f"/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}) "
+             f"and {per} Mamba-2 blocks, then {tail} ({cfg.ssm_expand * d} "
+             f"channels, heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, "
+             f"chunk {cfg.ssm_chunk})")
+  elif fam == "encdec":
+    shape = (f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder "
+             f"layers, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+             f"{cfg.d_ff}, memory {cfg.encoder_seq} frames")
+  else:
+    shape = (f"GQA {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+             f"{cfg.head_dim}, rope_theta {cfg.rope_theta:g}, "
+             f"d_ff {cfg.d_ff}, {cfg.frontend_seq} vision embeddings")
+  cut = ("all layers" if num_layers is None else
+         f"cut to {num_layers} of {full.num_layers} layers")
+  log(f"phase 11: {cfg.name} [{fam}] at its published widths, {cut} "
+      f"(d_model {d}, {shape}; vocab {vocab}): {n_params:,} params, "
+      f"{n_params * 4 / 2**30:.2f} GiB f32, initialized in {t_init:.3f} s")
+
+  # The prefill batch: 4 sequences of 2,048 positions, with the stub
+  # frontend's output (InternVL2: 256 vision positions + 1,792 tokens, the
+  # split of src/repro/launch/specs.py:46-52).
+  b, s, chunk = 4, 2048, 1024
+  n_vis = cfg.frontend_seq if fam == "vlm" else 0
+  tokens = torch.randint(0, vocab, (b, s - n_vis), generator=gen,
+                         device="cuda", dtype=torch.int32)
+  batch = {"tokens": tokens}
+  if fam == "encdec":
+    batch["enc_frames"] = torch.randn(
+        (b, cfg.encoder_seq, d), generator=gen, device="cuda") * FRONTEND_SCALE
+  if fam == "vlm":
+    batch["vision_embeds"] = torch.randn(
+        (b, n_vis, d), generator=gen, device="cuda") * FRONTEND_SCALE
+  prefill = make_prefill(model)
+  t0 = time.perf_counter()
+  logits = prefill(params, batch)
+  torch.cuda.synchronize()
+  t_first = time.perf_counter() - t0
+  if logits.shape != (b, s, cfg.padded_vocab(1)):
+    raise AssertionError(f"prefill logits shape {tuple(logits.shape)}")
+  if not torch.isfinite(logits).all():
+    raise AssertionError("prefill logits are not finite")
+  del logits
+  prefill_ms = cuda_ms(lambda: prefill(params, batch), iters=3, warmup=1)
+  log(f"phase 11: {cfg.name} prefill {b}x{s} positions (kv_chunk {chunk}"
+      + (f"; memory {b}x{cfg.encoder_seq} frames" if fam == "encdec" else "")
+      + (f"; {n_vis} vision + {s - n_vis} tokens" if fam == "vlm" else "")
+      + f"): finite logits; first call {t_first:.3f} s, then "
+      f"{prefill_ms:.2f} ms (CUDA events, mean of 3), "
+      f"{b * s / prefill_ms * 1e3:.0f} prompt positions/s")
+
+  step = make_decode_step(model)
+  long_cache = model.init_cache(b, 2 * s)
+  tok = tokens[:, :1].contiguous()
+  decode_ms = cuda_ms(lambda: step(params, tok, long_cache, s), iters=5,
+                      warmup=2)
+  busy_prefill = device_busy(lambda: prefill(params, batch))
+  log(busy_line(f"phase 11: {cfg.name} prefill {b}x{s}", busy_prefill))
+  busy_decode = device_busy(lambda: step(params, tok, long_cache, s))
+  log(busy_line(f"phase 11: {cfg.name} decode step B={b} at pos {s}",
+                busy_decode))
+  del long_cache
+  log(f"phase 11: {cfg.name} decode step {decode_ms:.2f} ms at B={b}, pos "
+      f"{s} of a {2 * s}-slot cache ({b / decode_ms * 1e3:.1f} tokens/s)")
+
+  # The prompts cut to 32 tokens: generate's greedy tokens, then prefill
+  # against decode.
+  p, new = 32, 16
+  short = tokens[:, :p].contiguous()
+  out = generate(model, params, short, max_new=new)
+  torch.cuda.synchronize()
+  if out.shape != (b, p + new) or not torch.equal(out[:, :p], short):
+    raise AssertionError(f"generate returned {tuple(out.shape)}")
+  if not ((out >= 0) & (out < vocab)).all():
+    raise AssertionError("generated token out of range")
+  log(f"phase 11: {cfg.name} generate: {new} greedy tokens after {p}-token "
+      f"prompts")
+  pvd = {}
+  if fam == "hybrid":
+    for dtype, tol in (("bfloat16", HYBRID_PREFILL_DECODE_TOL),
+                       ("float32", HYBRID_PREFILL_DECODE_F32_TOL)):
+      m = model if dtype == "bfloat16" else build_model(
+          cfg.scaled(dtype=dtype))
+      r = pvd[dtype] = prefill_vs_decode(m, params, {"tokens": short})
+      log(pvd_line(f"phase 11: {cfg.name} {dtype} compute, prefill vs "
+                   f"decode after {p} tokens", r, tol))
+      check_pvd(r, tol, f"{cfg.name} {dtype}")
+  elif fam == "encdec":
+    r = pvd["as_configured"] = prefill_vs_decode(
+        model, params, {"tokens": short, "enc_frames": batch["enc_frames"]})
+    log(pvd_line(f"phase 11: {cfg.name} prefill (with the memory) vs decode "
+                 f"(a zero cross cache, ROADMAP Queue 3 item 9) after {p} "
+                 f"tokens", r, None))
+    if r["max_abs_ck"] != 0.0:
+      raise AssertionError("the cross cache is not zeros")
+    layers = params["layers"]
+    no_x = {**params, "layers": {**layers, "xattn": {
+        **layers["xattn"], "wo": torch.zeros_like(layers["xattn"]["wo"])}}}
+    r = pvd["xattn_wo_zeroed"] = prefill_vs_decode(
+        model, no_x, {"tokens": short, "enc_frames": batch["enc_frames"]})
+    del no_x
+    log(pvd_line(f"phase 11: {cfg.name} every xattn.wo zeroed (a copy of the "
+                 f"weights), prefill vs decode after {p} tokens", r,
+                 FRONTEND_FREE_PREFILL_DECODE_TOL))
+    check_pvd(r, FRONTEND_FREE_PREFILL_DECODE_TOL, f"{cfg.name} wo zeroed")
+  else:
+    vis = batch["vision_embeds"]
+    r = pvd["image_prefix"] = prefill_vs_decode(
+        model, params, {"tokens": short, "vision_embeds": vis})
+    log(pvd_line(f"phase 11: {cfg.name} prefill ({n_vis} vision embeddings + "
+                 f"{p} tokens) vs decode ({p} tokens, ROADMAP Queue 3 item "
+                 f"9)", r, None))
+    r = pvd["no_image"] = prefill_vs_decode(
+        model, params, {"tokens": short, "vision_embeds": vis[:, :0]})
+    log(pvd_line(f"phase 11: {cfg.name} no vision embeddings, prefill vs "
+                 f"decode after {p} tokens", r,
+                 FRONTEND_FREE_PREFILL_DECODE_TOL))
+    check_pvd(r, FRONTEND_FREE_PREFILL_DECODE_TOL, f"{cfg.name} no image")
+
+  # One layer's blocks at the prefill's shape.
+  blocks = {}
+  with torch.inference_mode():
+    x = model.embed_inputs(params, batch)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")
+
+    def timed(name, fn):
+      blocks[name] = cuda_ms(fn, iters=3, warmup=1)
+
+    if fam == "hybrid":
+      lp = T._layer(T._layer(params["segments"], 0), 0)
+      sp = lp["ssm"]
+      hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+      z, _, xh, dt, bmat, cmat = ssmlib._mamba2_in(sp, hn, cfg)
+      a = -torch.exp(sp["a_log"].float())
+      y = ssmlib._ssd_chunk_scan(xh, dt, a, bmat, cmat, cfg.ssm_chunk)
+      timed("mamba2_block", lambda: model._mamba2_block(lp, x))
+      timed("mamba2_projections_conv", lambda: ssmlib._mamba2_in(sp, hn, cfg))
+      timed("ssd_chunk_scan", lambda: ssmlib._ssd_chunk_scan(
+          xh, dt, a, bmat, cmat, cfg.ssm_chunk))
+      timed("mamba2_gate_norm_out", lambda: ssmlib._mamba2_out(sp, y, xh, z,
+                                                               cfg))
+      timed("shared_block", lambda: model._shared_block(params, x, pos, chunk))
+      del z, xh, dt, bmat, cmat, y, hn
+    elif fam == "encdec":
+      mem = batch["enc_frames"].to(cd)
+      enc_pos = torch.arange(mem.shape[1], dtype=torch.int32, device="cuda")
+      le, ld = T._layer(params["encoder"], 0), T._layer(params["layers"], 0)
+      mem_n = rms_norm(mem, params["enc_ln_f"], cfg.norm_eps)
+      timed("encoder_layer", lambda: T._ffn_apply(le, T._attn_apply(
+          le, mem, enc_pos, cfg, causal=False, kv_chunk=chunk), cfg))
+      timed("decoder_self_attention", lambda: T._attn_apply(
+          ld, x, pos, cfg, kv_chunk=chunk))
+      timed("decoder_cross_attention", lambda: T._cross_attn(
+          ld, x, mem_n, pos, enc_pos, cfg, chunk))
+      timed("decoder_swiglu", lambda: T._ffn_apply(ld, x, cfg))
+      del mem, mem_n
+    else:
+      lp = T._layer(params["layers"], 0)
+      timed("attention", lambda: T._attn_apply(lp, x, pos, cfg,
+                                               kv_chunk=chunk))
+      timed("swiglu", lambda: T._ffn_apply(lp, x, cfg))
+    del x
+  log(f"phase 11: {cfg.name} one layer at {b}x{s}: " + ", ".join(
+      f"{name} {ms:.2f} ms" for name, ms in blocks.items()))
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  log(f"phase 11: {cfg.name} peak device memory {peak_gib:.2f} GiB")
+  rec = {"config": cfg.name, "family": fam, "num_layers": cfg.num_layers,
+         "published_layers": full.num_layers, "params": n_params,
+         "init_s": t_init, "prefill_batch": [b, s], "kv_chunk": chunk,
+         "prefill_first_s": t_first, "prefill_ms": prefill_ms,
+         "prefill_positions_per_s": b * s / prefill_ms * 1e3,
+         "decode_step_ms": decode_ms, "decode_batch": b, "decode_pos": s,
+         "decode_cache_slots": 2 * s, "prefill_profile": busy_prefill,
+         "decode_profile": busy_decode, "prefill_vs_decode": pvd,
+         "layer_block_ms": blocks, "peak_device_gib": peak_gib}
+  if fam == "hybrid":
+    rec["ssd"] = ssd_work(b, s, cfg)
+  return rec
+
+
 def main(argv=None) -> int:
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   ap.add_argument("--scale", type=int, default=20,
@@ -2322,6 +2637,22 @@ def main(argv=None) -> int:
   if any(moe_launches.values()):
     raise AssertionError("phase 10: a kernel was launched on the moe path")
   moe["kernel_launches"] = moe_launches
+  torch.cuda.empty_cache()  # the MoE weights went with their phase
+  ell_mod.launches.reset()
+  ss_mod.launches = 0
+  t0 = time.perf_counter()
+  families = {}
+  for arch, layers in FAMILY_CUTS:
+    families[arch] = phase_family(arch, layers)
+    torch.cuda.empty_cache()
+  log(f"phase 11: took {time.perf_counter() - t0:.1f} s")
+  family_launches = {"ell_spmv": ell_mod.launches.total,
+                     "selective_scan": ss_mod.launches}
+  log("phase 11: kernel launches on the hybrid, encdec and vlm paths (none "
+      "is owed) " + json.dumps(family_launches))
+  if any(family_launches.values()):
+    raise AssertionError("phase 11: a kernel was launched on these paths")
+  families["kernel_launches"] = family_launches
   b, s, _, _ = FALCON_SCAN
   entries.append({
       "name": f"selective_scan[falcon-mamba-7b,f32,B={b},S={s}]",
@@ -2339,7 +2670,7 @@ def main(argv=None) -> int:
       "kernels": entries, "ell_array_bound_ms": array_bounds,
       "ell_ms_by_frontier": by_frontier, "superstep_split": split,
       "suite": suite, "scan": scan, "lm": lm, "dist2d": dist2d,
-      "granite": granite, "moe": moe}, indent=1))
+      "granite": granite, "moe": moe, "families": families}, indent=1))
   log(card)
   print(json.dumps({"kernels": entries}), flush=True)
   print(json.dumps({"ok": True, "device": {
