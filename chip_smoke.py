@@ -104,6 +104,20 @@ Phases, in order; any failure exits non-zero before the result line:
    shared block; SeamlessM4T: an encoder layer, a decoder layer's self
    and cross attention and SwiGLU; InternVL2: attention and SwiGLU); no
    kernel is launched (none is owed there);
+12. train Granite-3-2B at its published widths and depth (40 layers, remat
+   full; random float32 weights, bf16 compute) through ``make_train_step``
+   (AdamW, cosine schedule) on ``synthetic_batch`` at 4 × 2,048 tokens: 8
+   steps on two alternating batches (the loss must be finite and fall), 6
+   of them timed with CUDA events and one under ``torch.profiler`` (device
+   busy share, device time by kernel class), peak memory, the optimizer
+   update timed alone; at 4 layers, the gradients and peaks of remat full
+   against none; at 2 layers in float32, the card's loss and gradients
+   against the host's from the same weights; at 2 layers, the driver
+   ``launch/train.py`` for 3 steps with a checkpoint every step, a restart
+   to 6 that resumes at step 3, against 6 steps in one run; no kernel is
+   launched on the train path (neither has a backward).  Then the eval
+   step of Falcon-Mamba-7B (8 of 64 layers) with the fused scan (8
+   launches) against ``assoc``, and a fused train step, which must raise;
 
 then the ``{"kernels": [...]}`` line, the card line and last ``{"ok": true,
 "device": {...}}``.  Detail that is too long for the end of the output goes
@@ -136,13 +150,19 @@ within ``MOE_CROSS_TOL`` times max|y|.  Phase 11: Zamba2's prefill against
 decode within ``HYBRID_PREFILL_DECODE_TOL`` (bf16) and
 ``HYBRID_PREFILL_DECODE_F32_TOL`` (float32) times max|logit|; SeamlessM4T
 with ``xattn.wo`` zeroed and InternVL2 with no image within
-``FRONTEND_FREE_PREFILL_DECODE_TOL`` (see their comments).
+``FRONTEND_FREE_PREFILL_DECODE_TOL`` (see their comments).  Phase 12:
+gradients of remat full against none within ``REMAT_GRAD_TOL``, the card
+against the host within ``HOST_LOSS_RTOL`` and ``HOST_GRAD_TOL``, the
+resumed run's parameters within ``RESUME_PARAM_ATOL`` of the uninterrupted
+run's (the restored state bit for bit), the fused eval loss within
+``FUSED_ASSOC_TOL`` of the assoc one, relative to it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -1157,7 +1177,6 @@ def phase_suite_tc_cf(seed: int = 11) -> dict:
 def table3(suite: dict) -> dict:
   """The five graphmat/native ratios, their geomean, and the geomean of the
   four the paper has, beside the paper's."""
-  import math
   ratios = {a: suite[a]["ratio"] for a in PAPER_TABLE3}
 
   def geomean(vals):
@@ -2545,6 +2564,334 @@ def phase_family(arch: str, num_layers, seed: int = 0) -> dict:
   return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: training Granite-3-2B on the card; the eval path's fused scan
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite_3_2b"
+TRAIN_BATCH = (4, 2048)  # 8,192 tokens a step: the prefill cells' positions
+TRAIN_STEPS = 8          # 1 warm-up, 6 timed, 1 under the profiler
+# Remat full against none at 4 layers, bf16 compute: both run the same
+# kernels on the same inputs (full remat runs each layer's forward again),
+# so the gradients should agree to far below one bf16 step; the bound,
+# set before the first run, is 2^-8 of each leaf's max|g|, one bf16 step.
+REMAT_GRAD_TOL = 2.0 ** -8
+# The card against the host, 2 layers in float32 compute (TF32 off): the
+# same arithmetic summed in other orders by cuBLAS and the CPU's BLAS over
+# dot products of up to 8,192 terms; set before the first run: the loss
+# within rtol 1e-5, each gradient leaf within 1e-4 of its max|g|.
+HOST_LOSS_RTOL = 1e-5
+HOST_GRAD_TOL = 1e-4
+# Resume against an uninterrupted run, 6 steps at 2 layers: the restored
+# state must equal the saved one bit for bit; the final parameters are
+# reported bit for bit or not, and held within 1e-6 (a few float32 steps
+# of weights near 1, well under what a step at these learning rates
+# moves them).
+RESUME_PARAM_ATOL = 1e-6
+EVAL_ARCH, EVAL_LAYERS = "falcon_mamba_7b", 8
+
+
+def grads_of(model, params, batch):
+  """The training loss and its gradients with respect to every parameter
+  leaf, as a train step forms them, without the update."""
+  from repro_torch.train.steps import make_loss_fn, value_and_grad
+  (total, _), grads = value_and_grad(make_loss_fn(model))(params, batch)
+  return total, grads
+
+
+def grad_gap(got, want) -> float:
+  """The largest, over the leaves, of max|got − want| / max|want|."""
+  from repro_torch._tree import tree_flatten_with_path
+  worst = 0.0
+  for (_, g), (_, w) in zip(tree_flatten_with_path(got),
+                            tree_flatten_with_path(want)):
+    w = w.float()
+    scale = float(w.abs().max())
+    worst = max(worst, float((g.float().to(w.device) - w).abs().max())
+                / max(scale, 1e-30))
+  return worst
+
+
+KERNEL_CLASSES = (  # (class, substrings of a kernel's name), first match
+    ("f32 GEMM (attention's einsums)", ("gemm_f32f32", "sgemm")),
+    ("bf16 GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("fill (zeros)", ("FillFunctor",)),
+    ("float add", ("CUDAFunctor_add<float>",)),
+    ("copy and cast", ("copy_kernel",)),
+    ("reduction", ("reduce_kernel",)),
+    ("other elementwise", ("",)))
+
+
+def kernel_classes(by_name) -> dict:
+  """Device ms by kernel class, from (name, ms) pairs."""
+  out = {c: 0.0 for c, _ in KERNEL_CLASSES}
+  for name, ms in by_name:
+    cls = next(c for c, keys in KERNEL_CLASSES if any(k in name for k in keys))
+    out[cls] += ms
+  return out
+
+
+def register_config(name: str, cfg) -> None:
+  """Make ``cfg`` reachable as ``repro_torch.configs.get_config(name)`` (a
+  transient config module, as ``examples/train_lm_torch.py`` makes one)."""
+  import types
+  mod = types.ModuleType(f"repro_torch.configs.{name}")
+  mod.CONFIG = cfg
+  sys.modules[mod.__name__] = mod
+
+
+def phase_train(seed: int = 0) -> dict:
+  import torch
+  from repro_torch import configs
+  from repro_torch._tree import tree_leaves, tree_map
+  from repro_torch.launch import train as train_driver
+  from repro_torch.models.common import init_params, num_params
+  from repro_torch.models.transformer import build_model
+  from repro_torch.train import adamw_init, make_train_step, synthetic_batch
+  from repro_torch.train.checkpoint import restore_checkpoint
+  from repro_torch.train.optimizer import adamw_update
+
+  out = {}
+  # a. Full width and depth, remat full, through the train step.
+  cfg = configs.get_config(TRAIN_ARCH)
+  model = build_model(cfg)
+  torch.cuda.reset_peak_memory_stats()
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  t0 = time.perf_counter()
+  params = init_params(model.defs(), gen)
+  opt = adamw_init(params)
+  torch.cuda.synchronize()
+  t_init = time.perf_counter() - t0
+  n_params = num_params(model.defs())
+  state_gib = 4 * n_params * 4 / 2**30
+  log(f"phase 12: {cfg.name} at its published widths and depth "
+      f"({cfg.num_layers} layers, d_model {cfg.d_model}, GQA "
+      f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+      f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied embeddings, remat "
+      f"{cfg.remat}): {n_params:,} params; parameters, gradients and two "
+      f"AdamW moments {state_gib:.2f} GiB f32; initialized in {t_init:.3f} s")
+  b, s = TRAIN_BATCH
+  batches = [synthetic_batch(cfg, b, s, step=i, seed=seed) for i in (0, 1)]
+  step = make_train_step(model, peak_lr=3e-4, warmup=2, total_steps=100)
+  metrics = []
+  t0 = time.perf_counter()
+  params, opt, m = step(params, opt, batches[0])
+  metrics.append(m)
+  torch.cuda.synchronize()
+  first_s = time.perf_counter() - t0
+  events = [torch.cuda.Event(enable_timing=True)
+            for _ in range(TRAIN_STEPS - 1)]
+  events[0].record()
+  for i in range(1, TRAIN_STEPS - 1):
+    params, opt, m = step(params, opt, batches[i % 2])
+    metrics.append(m)
+    events[i].record()
+  torch.cuda.synchronize()
+  step_ms = [events[i - 1].elapsed_time(events[i])
+             for i in range(1, TRAIN_STEPS - 1)]
+  last = []
+  busy = device_busy(lambda: last.append(
+      step(params, opt, batches[(TRAIN_STEPS - 1) % 2])), top=10**6)
+  classes = kernel_classes(busy["top_kernels_ms"])
+  busy["top_kernels_ms"] = busy["top_kernels_ms"][:8]
+  params, opt, m = last[0]
+  metrics.append(m)
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  losses = [float(m["loss"]) for m in metrics]
+  gnorms = [float(m["grad_norm"]) for m in metrics]
+  lrs = [float(m["lr"]) for m in metrics]
+  mean_ms = sum(step_ms) / len(step_ms)
+  log(f"phase 12: train step {b}x{s} tokens: first {first_s:.3f} s, then "
+      f"{mean_ms:.2f} ms (CUDA events, mean of {len(step_ms)}; "
+      + ", ".join(f"{x:.2f}" for x in step_ms)
+      + f"), {b * s / mean_ms * 1e3:.0f} tokens/s")
+  log(f"phase 12: losses over {TRAIN_STEPS} steps on two alternating "
+      f"batches " + ", ".join(f"{x:.4f}" for x in losses)
+      + "; grad norms " + ", ".join(f"{x:.3f}" for x in gnorms)
+      + "; lr " + ", ".join(f"{x:.3g}" for x in lrs))
+  if not all(map(math.isfinite, losses + gnorms)):
+    raise AssertionError("phase 12: a loss or grad norm is not finite")
+  if not sum(losses[-2:]) < sum(losses[:2]):
+    raise AssertionError("phase 12: the loss did not fall")
+  log(busy_line(f"phase 12: train step {b}x{s}", busy))
+  log("phase 12: device ms by kernel class " + ", ".join(
+      f"{c} {ms:.2f}" for c, ms in classes.items()))
+  log(f"phase 12: peak device memory over the steps {peak_gib:.2f} GiB "
+      f"(state {state_gib:.2f} GiB)")
+  # The optimizer update alone, on zero gradients at lr 0 (the same
+  # arithmetic and bytes as a step's; the parameters do not move).
+  zeros = tree_map(torch.zeros_like, params)
+  lr0 = torch.zeros((), device="cuda")
+  update_ms = cuda_ms(lambda: adamw_update(zeros, opt, params, lr=lr0),
+                      iters=3, warmup=1)
+  del zeros
+  log(f"phase 12: optimizer update {update_ms:.2f} ms (CUDA events, mean of "
+      f"3), forward+backward by difference {mean_ms - update_ms:.2f} ms "
+      f"({(mean_ms - update_ms) / mean_ms:.3f} of the step)")
+  # The GEMMs' bf16 FLOPs a step: every layer matrix multiplies each token
+  # in the forward, its recomputation and the two backward products, the
+  # tied unembedding in the forward and its two backward products.
+  vpad = cfg.padded_vocab(1)
+  layer_params = n_params - vpad * cfg.d_model
+  gemm_flops = 8 * b * s * layer_params + 6 * b * s * cfg.d_model * vpad
+  out["train"] = {
+      "config": cfg.name, "num_layers": cfg.num_layers, "params": n_params,
+      "state_gib": state_gib, "init_s": t_init, "batch": [b, s],
+      "first_step_s": first_s, "step_ms": step_ms, "mean_step_ms": mean_ms,
+      "tokens_per_s": b * s / mean_ms * 1e3, "losses": losses,
+      "grad_norms": gnorms, "lrs": lrs, "profile": busy,
+      "device_ms_by_class": classes,
+      "update_ms": update_ms, "peak_device_gib": peak_gib,
+      "gemm_flops": gemm_flops,
+      "gemm_bound_ms": gemm_flops / H100_BF16_OPS_PER_S * 1e3}
+  del params, opt, m, metrics, last, batches, busy
+  torch.cuda.empty_cache()
+
+  # b. Remat full against none at 4 layers; the card against the host at
+  # 2 layers in float32.
+  remat = {}
+  cfg4 = cfg.scaled(num_layers=4)
+  p4 = init_params(build_model(cfg4).defs(), gen)
+  batch = synthetic_batch(cfg4, b, s, step=2, seed=seed)
+  base_gib = torch.cuda.memory_allocated() / 2**30
+  grads = {}
+  for mode in ("full", "none"):
+    torch.cuda.reset_peak_memory_stats()
+    _, grads[mode] = grads_of(build_model(cfg4.scaled(remat=mode)), p4, batch)
+    torch.cuda.synchronize()
+    remat[f"peak_gib_{mode}"] = torch.cuda.max_memory_allocated() / 2**30
+  gap = remat["grad_gap"] = grad_gap(grads["full"], grads["none"])
+  remat["bitwise"] = all(torch.equal(x, y) for x, y in zip(
+      tree_leaves(grads["full"]), tree_leaves(grads["none"])))
+  log(f"phase 12: 4 layers, {b}x{s}, bf16 compute: peak device memory with "
+      f"remat full {remat['peak_gib_full']:.2f} GiB, none "
+      f"{remat['peak_gib_none']:.2f} GiB (weights and batch {base_gib:.2f}); "
+      f"gradients full vs none: largest gap {gap:.3g} of a leaf's max|g| "
+      f"(bit for bit: {remat['bitwise']}; tolerance {REMAT_GRAD_TOL:.4g})")
+  if not gap <= REMAT_GRAD_TOL:
+    raise AssertionError("phase 12: remat full and none disagree")
+  del p4, grads, batch
+  torch.cuda.empty_cache()
+
+  cfg2 = cfg.scaled(num_layers=2, dtype="float32")
+  model2 = build_model(cfg2)
+  p2 = init_params(model2.defs(), gen)
+  batch = synthetic_batch(cfg2, 1, 256, step=3, seed=seed)
+  loss_c, g_c = grads_of(model2, p2, batch)
+  t0 = time.perf_counter()
+  loss_h, g_h = grads_of(model2, tree_map(lambda t: t.cpu(), p2),
+                         {k: v.cpu() for k, v in batch.items()})
+  host_s = time.perf_counter() - t0
+  host_gap = grad_gap(g_c, g_h)
+  loss_rel = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+  log(f"phase 12: 2 layers, 1x256, f32 compute, card vs host: loss "
+      f"{float(loss_c):.6f} vs {float(loss_h):.6f} (rel {loss_rel:.3g}, "
+      f"tolerance {HOST_LOSS_RTOL}); largest gradient gap {host_gap:.3g} of "
+      f"a leaf's max|g| (tolerance {HOST_GRAD_TOL}); host pass {host_s:.1f} s")
+  if not (loss_rel <= HOST_LOSS_RTOL and host_gap <= HOST_GRAD_TOL):
+    raise AssertionError("phase 12: the card and the host disagree")
+  out["remat"] = remat
+  out["host"] = {"loss_card": float(loss_c), "loss_host": float(loss_h),
+                 "loss_rel": loss_rel, "grad_gap": host_gap,
+                 "host_s": host_s}
+  del p2, g_c, g_h, batch
+  torch.cuda.empty_cache()
+
+  # c. Checkpoint and resume through the driver, at 2 layers.
+  name = f"{TRAIN_ARCH}_l2"
+  register_config(name, cfg.scaled(num_layers=2))
+  common = ["--arch", name, "--batch", "4", "--seq", "256", "--seed",
+            str(seed), "--log-every", "1"]
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+    t0 = time.perf_counter()
+    first = train_driver.train(common + ["--steps", "3", "--ckpt-dir", d,
+                                         "--ckpt-every-s", "0"])
+    t_first = time.perf_counter() - t0
+    saved = {"params": first["params"], "opt": first["opt"]}
+    restored = restore_checkpoint(d, 3, saved)
+    same_saved = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(restored), tree_leaves(saved)))
+    del restored, saved, first
+    t0 = time.perf_counter()
+    second = train_driver.train(common + ["--steps", "6", "--ckpt-dir", d])
+    t_second = time.perf_counter() - t0
+  whole = train_driver.train(common + ["--steps", "6"])
+  pairs = list(zip(tree_leaves((second["params"], second["opt"])),
+                   tree_leaves((whole["params"], whole["opt"]))))
+  bitwise = all(torch.equal(x, y) for x, y in pairs)
+  p_gap = max(float((x.float() - y.float()).abs().max())
+              for x, y in pairs[:len(tree_leaves(whole["params"]))])
+  log(f"phase 12: launch/train.py at 2 layers: 3 steps checkpointed every "
+      f"step ({t_first:.1f} s), restart to 6 resumed at step "
+      f"{second['start']} ({t_second:.1f} s); restored == saved bit for bit: "
+      f"{same_saved}; losses {second['losses']} vs uninterrupted "
+      f"{whole['losses'][3:]}; final state bit for bit: {bitwise}, largest "
+      f"parameter gap {p_gap:.3g} (tolerance {RESUME_PARAM_ATOL})")
+  if not (same_saved and second["start"] == 3
+          and p_gap <= RESUME_PARAM_ATOL):
+    raise AssertionError("phase 12: resume differs from the uninterrupted run")
+  out["resume"] = {"restored_equals_saved": same_saved,
+                   "resumed_at": second["start"], "final_bitwise": bitwise,
+                   "param_gap": p_gap, "first_run_s": t_first,
+                   "second_run_s": t_second,
+                   "losses_resumed": second["losses"],
+                   "losses_whole": whole["losses"]}
+  del second, whole, pairs
+  torch.cuda.empty_cache()
+  return out
+
+
+def phase_eval_fused(ss_mod, seed: int = 0) -> dict:
+  """The eval step of Falcon-Mamba-7B (8 of 64 layers, full width) with
+  the fused scan and with ``assoc``; a fused train step must raise."""
+  import torch
+  from repro_torch import configs
+  from repro_torch.models.common import init_params
+  from repro_torch.models.transformer import build_model
+  from repro_torch.train import (adamw_init, make_eval_step,
+                                 make_train_step, synthetic_batch)
+
+  full = configs.get_config(EVAL_ARCH)
+  cfg = full.scaled(num_layers=EVAL_LAYERS, ssm_impl="fused")
+  fused = build_model(cfg)
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  params = init_params(fused.defs(), gen)
+  b, s = TRAIN_BATCH
+  batch = synthetic_batch(cfg, b, s, step=0, seed=seed)
+  ss_mod.launches = 0
+  got = make_eval_step(fused)(params, batch)
+  launches = ss_mod.launches
+  want = make_eval_step(build_model(cfg.scaled(ssm_impl="assoc")))(params,
+                                                                   batch)
+  lf, la = float(got["loss"]), float(want["loss"])
+  rel = abs(lf - la) / abs(la)
+  eval_ms = cuda_ms(lambda: make_eval_step(fused)(params, batch), iters=2,
+                    warmup=1)
+  log(f"phase 12: {cfg.name} eval step ({EVAL_LAYERS} of {full.num_layers} "
+      f"layers, {b}x{s}): fused loss {lf:.5f} with {launches} scan launches, "
+      f"assoc {la:.5f} (rel {rel:.3g}, tolerance {FUSED_ASSOC_TOL}); fused "
+      f"eval {eval_ms:.2f} ms")
+  if not (math.isfinite(lf) and rel <= FUSED_ASSOC_TOL):
+    raise AssertionError("phase 12: fused and assoc eval losses disagree")
+  if launches != EVAL_LAYERS:
+    raise AssertionError(f"phase 12: {launches} scan launches in an eval "
+                         f"step of {EVAL_LAYERS} layers")
+  small = {k: v[:1, :256] for k, v in batch.items()}
+  try:
+    make_train_step(fused)(params, adamw_init(params), small)
+  except RuntimeError as e:
+    refused = str(e)
+  else:
+    raise AssertionError("phase 12: a fused train step did not raise")
+  log(f"phase 12: a fused train step raises: {refused}")
+  del params
+  torch.cuda.empty_cache()
+  return {"config": cfg.name, "num_layers": EVAL_LAYERS, "batch": [b, s],
+          "scan_launches_per_eval": launches, "loss_fused": lf,
+          "loss_assoc": la, "loss_rel": rel, "eval_ms": eval_ms,
+          "fused_train_step_error": refused}
+
+
 def main(argv=None) -> int:
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   ap.add_argument("--scale", type=int, default=20,
@@ -2653,6 +3000,20 @@ def main(argv=None) -> int:
   if any(family_launches.values()):
     raise AssertionError("phase 11: a kernel was launched on these paths")
   families["kernel_launches"] = family_launches
+  torch.cuda.empty_cache()
+  ell_mod.launches.reset()
+  ss_mod.launches = 0
+  t0 = time.perf_counter()
+  train = phase_train()
+  train_launches = {"ell_spmv": ell_mod.launches.total,
+                    "selective_scan": ss_mod.launches}
+  log("phase 12: kernel launches on the train path (no backward exists for "
+      "either kernel) " + json.dumps(train_launches))
+  if any(train_launches.values()):
+    raise AssertionError("phase 12: a kernel was launched on the train path")
+  train["kernel_launches"] = train_launches
+  train["eval_fused"] = phase_eval_fused(ss_mod)
+  log(f"phase 12: took {time.perf_counter() - t0:.1f} s")
   b, s, _, _ = FALCON_SCAN
   entries.append({
       "name": f"selective_scan[falcon-mamba-7b,f32,B={b},S={s}]",
@@ -2670,7 +3031,8 @@ def main(argv=None) -> int:
       "kernels": entries, "ell_array_bound_ms": array_bounds,
       "ell_ms_by_frontier": by_frontier, "superstep_split": split,
       "suite": suite, "scan": scan, "lm": lm, "dist2d": dist2d,
-      "granite": granite, "moe": moe, "families": families}, indent=1))
+      "granite": granite, "moe": moe, "families": families,
+      "train": train}, indent=1))
   log(card)
   print(json.dumps({"kernels": entries}), flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """Minimal pytree helpers over dict / tuple / list / tensor.
 
 The JAX package threads vertex properties and messages through
-``jax.tree_util``.  The port needs only map, leaves and flatten/unflatten
-over the containers its programs use, so it keeps this small copy of those
-semantics: dicts are walked in sorted-key order (as JAX does), tuples
-(including named tuples) and lists keep their order, ``None`` is an empty
-node, and anything else is a leaf.
+``jax.tree_util``.  The port needs only map, leaves, flatten/unflatten and
+flatten-with-path over the containers its programs use, so it keeps this
+small copy of those semantics: dicts are walked in sorted-key order (as JAX
+does), tuples (including named tuples) and lists keep their order, ``None``
+is an empty node, and anything else is a leaf.
 """
 
 from __future__ import annotations
@@ -44,6 +44,32 @@ def tree_flatten(tree: PyTree) -> Tuple[List[Any], Any]:
   """(leaves, treedef); ``treedef`` is opaque, for :func:`tree_unflatten`."""
   leaves: List[Any] = []
   return leaves, _walk(tree, leaves)
+
+
+def tree_flatten_with_path(tree: PyTree) -> List[Tuple[str, Any]]:
+  """(key, leaf) pairs in flattening order.  A key joins the path's dict
+  keys, named-tuple field names and sequence indices with ``/``: the keys
+  of the reference's checkpoints (``jax.tree_util.tree_flatten_with_path``
+  with each entry's ``key``, ``name`` or ``idx``)."""
+  out: List[Tuple[str, Any]] = []
+  _walk_paths(tree, (), out)
+  return out
+
+
+def _walk_paths(t, path: Tuple[str, ...], out: List[Tuple[str, Any]]):
+  if t is None:
+    return
+  if isinstance(t, dict):
+    for k in sorted(t):
+      _walk_paths(t[k], path + (str(k),), out)
+  elif _is_namedtuple(t):
+    for name, c in zip(t._fields, t):
+      _walk_paths(c, path + (name,), out)
+  elif isinstance(t, (tuple, list)):
+    for i, c in enumerate(t):
+      _walk_paths(c, path + (str(i),), out)
+  else:
+    out.append(("/".join(path), t))
 
 
 # The walkers are module functions, not closures: a nested function that

@@ -13,7 +13,8 @@ into shared memory with ``cp.async``, double-buffered).
 :func:`scan_cuda`) and the plain version
 (:func:`repro_torch.kernels.ref_selective_scan.selective_scan_ref`) on CPU
 tensors; on a CUDA tensor it launches or raises.  :data:`launches` counts
-the launches.
+the launches.  The scan has no backward, in either package: under autograd
+it raises on both devices rather than return a ``y`` cut off from the graph.
 """
 
 from __future__ import annotations
@@ -68,7 +69,17 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
   as the JAX package checks them (each, cut to the axis it tiles, must
   divide it), so both packages take the same inputs; the CUDA kernel's own
   tiling is fixed and handles any S and C.
+
+  Raises ``RuntimeError`` when grad mode is on and an input requires grad:
+  the kernel writes ``y`` through raw pointers, so it has no backward (the
+  reference's ``selective_scan_pallas`` cannot be differentiated either).
+  The CPU's plain version refuses too, so the two devices agree.
   """
+  if torch.is_grad_enabled() and any(
+      t.requires_grad for t in (u, dt, a, bmat, cmat)):
+    raise RuntimeError(
+        "selective_scan has no backward: run it under torch.no_grad() or "
+        "torch.inference_mode(), or train with ssm_impl='assoc'")
   _check(u.ndim == 3 and dt.shape == u.shape, "u and dt must be [B,S,C]")
   b, s, c = u.shape
   _check(a.ndim == 2 and a.shape[0] == c, "a must be [C,N]")

@@ -104,7 +104,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
   """Token embedding.  Gathers, then casts the gathered rows (the reference
-  casts the whole table first; the values are the same)."""
+  casts the whole table first; the values are the same).  In the backward
+  pass the gradients of repeated tokens are therefore summed in float32,
+  where the reference sums them in the compute dtype: in bf16 the two
+  ``embed`` gradients agree at bf16 tolerance, not bit for bit
+  (``tests/test_torch_train_grads.py``)."""
   return torch.nn.functional.embedding(ids, table).to(compute_dtype)
 
 

@@ -8,8 +8,9 @@ vision embeddings).
 The port of :mod:`repro.models.transformer`.  Layer parameters keep the
 reference's stacked axes (``[num_layers, ...]``; the hybrid's segments
 ``[seg, per, ...]``); the reference's ``lax.scan`` over them becomes a
-Python loop over the leading axis.  Remat is a training matter and has no
-place here.
+Python loop over the leading axis.  Under autograd each layer of that loop
+is rematerialized as ``cfg.remat`` says (:func:`_remat`); with grad off
+(serving) the layers run as they are.
 
 The public surface is :class:`Model` (closures over config):
   * ``defs()``            — nested ParamDef tree
@@ -21,9 +22,11 @@ The public surface is :class:`Model` (closures over config):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch._tree import tree_leaves, tree_map
@@ -63,14 +66,49 @@ def _depth(stacked: PyTree) -> int:
   return tree_leaves(stacked)[0].shape[0]
 
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+  """The selective remat policy, JAX's ``dots_with_no_batch_dims_saveable``:
+  keep the products with no batch dimension (the weight projections), and
+  recompute the rest.  ``torch.matmul`` of activations by a weight lowers to
+  ``aten.mm``; ``torch.einsum`` lowers a product with no batch dimension
+  (``"bsh,hd->bsd"``) to an ``aten.bmm`` over a batch of one, and one with
+  batch dimensions (attention's ``bhqd,bhkd``, the experts') to a wider
+  ``bmm``."""
+  if op is torch.ops.aten.mm.default or (
+      op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+    return ckpt.CheckpointPolicy.MUST_SAVE
+  return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+  """``fn`` rematerialized under autograd, as the reference's ``_remat``:
+  ``"full"`` saves only the layer's inputs and recomputes the layer in the
+  backward pass, ``"selective"`` also saves its weight products; ``"none"``,
+  or grad off, runs ``fn`` as it is.  The layers draw no random numbers, so
+  the RNG state is not saved for the recomputation."""
+  if remat == "none" or not torch.is_grad_enabled():
+    return fn
+  if remat == "full":
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
+  if remat == "selective":
+    return functools.partial(
+        ckpt.checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+        context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     _save_weight_products))
+  raise ValueError(f"remat {remat!r}: expected none, full or selective")
+
+
 def scan_layers(stacked_params: PyTree, x: Tensor,
-                fn: Callable[[PyTree, Tensor], Tuple[Tensor, Any]]
-                ) -> Tuple[Tensor, Tensor]:
+                fn: Callable[[PyTree, Tensor], Tuple[Tensor, Any]],
+                remat: str = "none") -> Tuple[Tensor, Tensor]:
   """fn(layer_params, x) -> (x', aux_scalar), over the stack's leading
-  axis.  Returns (x, Σaux)."""
+  axis, each layer rematerialized as ``remat`` says (:func:`_remat`).
+  Returns (x, Σaux)."""
+  body = _remat(fn, remat)
   aux = torch.zeros((), dtype=torch.float32, device=x.device)
   for i in range(_depth(stacked_params)):
-    x, a = fn(_layer(stacked_params, i), x)
+    x, a = body(_layer(stacked_params, i), x)
     aux = aux + a
   return x, aux
 
@@ -234,12 +272,12 @@ class Model:
       def block(lp, h):
         h = _attn_apply(lp, h, positions, cfg, kv_chunk=kv_chunk)
         return _ffn_apply(lp, h, cfg)
-      x, aux = scan_layers(params["layers"], x, block)
+      x, aux = scan_layers(params["layers"], x, block, cfg.remat)
     elif fam == "ssm":
       def block(lp, h):
         hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
         return h + ssmlib.mamba1_forward(lp["ssm"], hn, cfg), 0.0
-      x, _ = scan_layers(params["layers"], x, block)
+      x, _ = scan_layers(params["layers"], x, block, cfg.remat)
     elif fam == "hybrid":
       x = self._hybrid_forward(params, x, positions, kv_chunk)
     else:
@@ -265,9 +303,11 @@ class Model:
     segments = params["segments"]
     for i in range(_depth(segments)):
       x = self._shared_block(params, x, positions, kv_chunk)
-      x, _ = scan_layers(_layer(segments, i), x, self._mamba2_block)
+      x, _ = scan_layers(_layer(segments, i), x, self._mamba2_block,
+                         self.cfg.remat)
     if "tail" in params:
-      x, _ = scan_layers(params["tail"], x, self._mamba2_block)
+      x, _ = scan_layers(params["tail"], x, self._mamba2_block,
+                         self.cfg.remat)
     return x
 
   def _encdec_forward(self, params, batch, x_dec: Tensor, positions: Tensor,
@@ -283,7 +323,7 @@ class Model:
       h = _attn_apply(lp, h, enc_pos, cfg, causal=False, kv_chunk=kv_chunk)
       return _ffn_apply(lp, h, cfg)
 
-    mem, _ = scan_layers(params["encoder"], mem, enc_block)
+    mem, _ = scan_layers(params["encoder"], mem, enc_block, cfg.remat)
     mem = rms_norm(mem, params["enc_ln_f"], cfg.norm_eps)
 
     def dec_block(lp, h):
@@ -291,7 +331,7 @@ class Model:
       h = _cross_attn(lp, h, mem, positions, enc_pos, cfg, kv_chunk)
       return _ffn_apply(lp, h, cfg)
 
-    x, _ = scan_layers(params["layers"], x_dec, dec_block)
+    x, _ = scan_layers(params["layers"], x_dec, dec_block, cfg.remat)
     return x
 
   def _logits(self, params, x: Tensor) -> Tensor:

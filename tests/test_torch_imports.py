@@ -44,6 +44,8 @@ def test_port_imports_with_jax_blocked():
       "import repro_torch.models, repro_torch.serve, repro_torch.configs\n"
       "import repro_torch.kernels.selective_scan, repro_torch.algos.native\n"
       "import repro_torch.models.moe\n"
+      "import repro_torch.train, repro_torch.train.checkpoint\n"
+      "import repro_torch.launch, repro_torch.launch.train\n"
       "from repro_torch.models.transformer import build_model\n"
       "for name in repro_torch.configs.ARCHITECTURES:\n"
       "  build_model(repro_torch.configs.get_config(name)).defs()\n"
