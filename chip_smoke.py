@@ -118,6 +118,24 @@ Phases, in order; any failure exits non-zero before the result line:
    launched on the train path (neither has a backward).  Then the eval
    step of Falcon-Mamba-7B (8 of 64 layers) with the fused scan (8
    launches) against ``assoc``, and a fused train step, which must raise;
+13. the sharded LM (``build_model(cfg, tp=1, dp_spec="data")``, parameters
+   and AdamW state as DTensors placed by ``param_shardings`` /
+   ``opt_state_pspecs`` on a 1×1 ("data", "model") ``DeviceMesh`` over
+   NCCL, world size 1; NCCL refuses two ranks on one card, so a real
+   multi-rank mesh runs only in the CPU tests): Granite-3-2B at its
+   published widths and depth, a 4 × 2,048 prefill and the loss and every
+   gradient of a train step held against the unsharded port on the same
+   weights and batch, two sharded train steps, each timed beside the
+   unsharded one; the dry run's per-rank FLOPs and argument bytes for the
+   same two steps (traced on a fake 1×1 group) against ``analysis``' count
+   of the card's run and the placed tensors' storage bytes, and each
+   step's FLOPs share of the data-sheet bf16 rate; Falcon-Mamba-7B (8 of
+   64 layers, ``ssm_impl="fused"``) prefilled on the mesh, the CUDA scan
+   through ``local_map`` (8 launches), against the unsharded fused
+   prefill; and the reference test's dry-run cells (granite-3-2b ×
+   decode_32k in the "seq" layout on 16×16, × train_4k on 2×16×16, the
+   skip of long_500k), traced in a child process on fake process groups
+   beside phases 12 and 13 (its failure fails the run);
 
 then the ``{"kernels": [...]}`` line, the card line and last ``{"ok": true,
 "device": {...}}``.  Detail that is too long for the end of the output goes
@@ -155,7 +173,13 @@ gradients of remat full against none within ``REMAT_GRAD_TOL``, the card
 against the host within ``HOST_LOSS_RTOL`` and ``HOST_GRAD_TOL``, the
 resumed run's parameters within ``RESUME_PARAM_ATOL`` of the uninterrupted
 run's (the restored state bit for bit), the fused eval loss within
-``FUSED_ASSOC_TOL`` of the assoc one, relative to it.
+``FUSED_ASSOC_TOL`` of the assoc one, relative to it.  Phase 13: the
+sharded logits, loss and gradients equal the unsharded ones bit for bit
+(the bound stated before its first run: on a 1×1 mesh the same local
+kernels run on the same tensors); the dry run's FLOPs and argument bytes
+equal the card's exactly; the dry-run cells within the reference test's
+own bounds (devices 256 and 512, decode FLOPs > 0 and collective bytes
+< 1e9, train FLOPs > 1e13, long_500k skipped).
 """
 
 from __future__ import annotations
@@ -2892,6 +2916,336 @@ def phase_eval_fused(ss_mod, seed: int = 0) -> dict:
           "fused_train_step_error": refused}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the sharded LM on a 1×1 DeviceMesh; the dry run on the card
+# ---------------------------------------------------------------------------
+
+SHARD_ARCH = "granite_3_2b"
+SHARD_BATCH = (4, 2048)
+SHARD_SCAN_ARCH, SHARD_SCAN_LAYERS = "falcon_mamba_7b", 8
+# NVIDIA's data sheet, H100 SXM: dense bf16 tensor-core rate (700 W).
+H100_BF16_FLOPS_PER_S = 989e12
+# The dry run's cells, traced in a child process on a fake process group
+# (no card): the reference test's two cells and its skip, and the two steps
+# of this phase on a fake 1×1 mesh at the sizes the card runs them.
+DRYRUN_CHILD = r"""
+import json, sys, time
+from repro_torch.launch.dryrun import run_cell, build_cell, SkipCell
+keys = ("devices", "flops", "product_flops", "bytes_accessed",
+        "collective_bytes", "argument_size_in_bytes", "temp_size_in_bytes",
+        "output_size_in_bytes", "trace_s")
+out = {}
+def cell(name, *a, **k):
+    rec = run_cell(*a, **k)
+    out[name] = {key: rec[key] for key in keys}
+    print(name, json.dumps(out[name]), flush=True)
+cell("prefill_1x1", "granite-3-2b", "prefill_32k", False, mesh_shape=(1, 1),
+     batch=%(b)d, seq=%(s)d)
+cell("train_1x1", "granite-3-2b", "train_4k", False, mesh_shape=(1, 1),
+     batch=%(b)d, seq=%(s)d, fsdp=False)
+cell("decode_32k_seq", "granite-3-2b", "decode_32k", False,
+     cache_layout="seq")
+cell("train_4k_2x16x16", "granite-3-2b", "train_4k", True)
+try:
+    build_cell("granite-3-2b", "long_500k", False)
+    out["long_500k_skipped"] = False
+except SkipCell as e:
+    out["long_500k_skipped"] = str(e)
+print("RESULT:" + json.dumps(out), flush=True)
+"""
+
+
+def start_dryrun_child():
+  """Start the dry run's child (host only: it never sees the card); its
+  output goes to ``chiprun_out/dryrun_child.log``."""
+  import os
+  OUT_DIR.mkdir(exist_ok=True)
+  env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+             CUDA_VISIBLE_DEVICES="")
+  logf = open(OUT_DIR / "dryrun_child.log", "w")
+  code = DRYRUN_CHILD % {"b": SHARD_BATCH[0], "s": SHARD_BATCH[1]}
+  proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                          stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT)
+  proc.logf = logf
+  proc.t0 = time.perf_counter()
+  return proc
+
+
+def stop_dryrun_child(proc) -> None:
+  if proc.poll() is None:
+    proc.kill()
+    proc.wait()
+  proc.logf.close()
+
+
+def collect_dryrun_child(proc, timeout: float = 600) -> dict:
+  """Wait for the child; its failure fails the run."""
+  try:
+    rc = proc.wait(timeout=timeout)
+  finally:
+    stop_dryrun_child(proc)
+  text = (OUT_DIR / "dryrun_child.log").read_text()
+  lines = [l for l in text.splitlines() if l.startswith("RESULT:")]
+  if rc != 0 or not lines:
+    raise AssertionError(f"phase 13: the dry run's child failed (rc {rc}):\n"
+                         + text[-3000:])
+  out = json.loads(lines[-1][len("RESULT:"):])
+  out["wall_s"] = time.perf_counter() - proc.t0
+  return out
+
+
+def storage_bytes(tree) -> int:
+  """Summed ``untyped_storage().nbytes()`` of a tree's tensors (a DTensor's
+  local shard)."""
+  from torch.distributed.tensor import DTensor
+  from repro_torch._tree import tree_leaves
+  total = 0
+  for t in tree_leaves(tree):
+    if isinstance(t, DTensor):
+      t = t.to_local()
+    total += t.untyped_storage().nbytes()
+  return total
+
+
+def bitwise(got, want, what: str) -> None:
+  """``got`` (DTensors or tensors) equal to ``want`` bit for bit, leaf by
+  leaf."""
+  from torch.distributed.tensor import DTensor
+  from repro_torch._tree import tree_flatten_with_path
+  import torch
+  for (k, g), (_, w) in zip(tree_flatten_with_path(got),
+                            tree_flatten_with_path(want)):
+    g = g.to_local() if isinstance(g, DTensor) else g
+    if not torch.equal(g, w):
+      err = float((g.float() - w.float()).abs().max())
+      raise AssertionError(f"phase 13: {what} {k or ''} differs from the "
+                           f"unsharded one (max abs {err:.3g})")
+
+
+def phase_sharded(ss_mod, ell_mod, child, seed: int = 0) -> dict:
+  """The sharded LM on the card: Granite-3-2B's prefill, gradients and train
+  step as DTensors on a 1×1 mesh against the unsharded port, the dry run's
+  predictions against the card's run, and the fused scan through
+  ``local_map``."""
+  import socket
+  import torch
+  import torch.distributed as dist
+  from torch.distributed.device_mesh import init_device_mesh
+
+  with socket.socket() as sock:
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+  dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                          world_size=1, rank=0,
+                          device_id=torch.device("cuda", 0))
+  try:
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    out = {"mesh": "1x1 (data, model), NCCL, world size 1"}
+    out.update(_sharded_granite(mesh, seed, child))
+    torch.cuda.empty_cache()
+    out["falcon_fused"] = _sharded_scan(mesh, ss_mod, ell_mod, seed)
+  finally:
+    dist.destroy_process_group()
+  return out
+
+
+def _place_batch(batch, mesh, cfg):
+  from repro_torch.launch import specs as S
+  from repro_torch.models import common as cm
+  b, s = batch["tokens"].shape
+  _, specs = S.batch_specs(cfg, b, s, ("data",), 1,
+                           with_labels="labels" in batch)
+  return cm.distribute_params(batch, S.named(mesh, specs))
+
+
+def _sharded_granite(mesh, seed: int, child) -> dict:
+  import torch
+  from repro_torch import configs
+  from repro_torch.analysis import analyze
+  from repro_torch.launch import specs as S
+  from repro_torch.models import common as cm
+  from repro_torch.models.transformer import build_model
+  from repro_torch.serve.engine import make_prefill
+  from repro_torch.train import adamw_init, make_train_step, synthetic_batch
+
+  cfg = configs.get_config(SHARD_ARCH)
+  plain = build_model(cfg)
+  sharded = build_model(cfg, tp=1, dp_spec="data")
+  defs = sharded.defs()
+  gen = torch.Generator(device="cuda").manual_seed(seed)
+  params = cm.init_params(defs, gen)
+  sp = cm.distribute_params(params, cm.param_shardings(defs, mesh))
+  shared = all(a.to_local().untyped_storage().data_ptr()
+               == b.untyped_storage().data_ptr()
+               for a, b in zip(_leaves(sp), _leaves(params)))
+  b, s = SHARD_BATCH
+  batch = synthetic_batch(cfg, b, s, step=0, seed=seed)
+  prompt = {"tokens": batch["tokens"]}
+  sprompt = _place_batch(prompt, mesh, cfg)
+  sbatch = _place_batch(batch, mesh, cfg)
+  log(f"phase 13: {cfg.name} ({cfg.num_layers} layers, "
+      f"{cm.num_params(defs):,} params) placed by param_shardings on a 1x1 "
+      f"('data', 'model') DeviceMesh over NCCL (world size 1), "
+      f"build_model(tp=1, dp_spec='data'); the DTensor shards share the "
+      f"unsharded parameters' storage: {shared}")
+  pre_u, pre_s = make_prefill(plain), make_prefill(sharded)
+  want = pre_u(params, prompt)
+  got = pre_s(sp, sprompt)
+  bitwise(got, want, "prefill logits")
+  if not torch.isfinite(want).all():
+    raise AssertionError("phase 13: prefill logits are not finite")
+  del got, want
+  # Both warmed by the check above.
+  plain_ms = cuda_ms(lambda: pre_u(params, prompt), iters=3, warmup=0)
+  shard_ms = cuda_ms(lambda: pre_s(sp, sprompt), iters=3, warmup=0)
+  count = analyze(pre_s, sp, sprompt)
+  prefill_flops = count["flops"]
+  del count["out"]
+  log(f"phase 13: prefill {b}x{s}: sharded logits == unsharded bit for bit; "
+      f"{shard_ms:.2f} ms sharded, {plain_ms:.2f} ms unsharded (CUDA events, "
+      f"mean of 3)")
+
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  loss_u, g_u = grads_of(plain, params, batch)
+  torch.cuda.synchronize()
+  grad_plain_s = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  loss_s, g_s = grads_of(sharded, sp, sbatch)
+  torch.cuda.synchronize()
+  grad_shard_s = time.perf_counter() - t0
+  bitwise(loss_s, loss_u, "loss")
+  bitwise(g_s, g_u, "gradient")
+  n_leaves = len(_leaves(g_u))
+  del g_u, g_s
+  torch.cuda.empty_cache()
+  log(f"phase 13: loss {float(loss_u):.6f} and all {n_leaves} gradient "
+      f"leaves: sharded == unsharded bit for bit; forward+backward "
+      f"{grad_shard_s:.3f} s sharded, {grad_plain_s:.3f} s unsharded")
+
+  # The moments as DTensors placed like their parameters (zeros_like); the
+  # step count replicated: the placements opt_state_pspecs gives.
+  opt = adamw_init(sp)
+  opt = opt._replace(step=cm.named(mesh, cm.P()).place(opt.step))
+  want_pl = S.named(mesh, S.opt_state_pspecs(defs))
+  if [t.placements for t in _leaves(opt)] != \
+      [sh.placements for sh in _leaves(want_pl)]:
+    raise AssertionError("phase 13: the AdamW state is not placed as "
+                         "opt_state_pspecs says")
+  step = make_train_step(sharded, peak_lr=3e-4, warmup=2, total_steps=100)
+  arg_prefill = storage_bytes((sp, sprompt))
+  arg_train = storage_bytes((sp, opt, sbatch))
+  count = analyze(step, sp, opt, sbatch)
+  _, opt, m = count.pop("out")
+  train_flops = count["flops"]
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  _, opt, m2 = step(sp, opt, sbatch)
+  torch.cuda.synchronize()
+  train_ms = (time.perf_counter() - t0) * 1e3
+  losses = [float(m["loss"].full_tensor()), float(m2["loss"].full_tensor())]
+  lrs = [float(m["lr"].full_tensor()), float(m2["lr"].full_tensor())]
+  if not all(map(math.isfinite, losses)):
+    raise AssertionError("phase 13: a sharded train step's loss is not "
+                         "finite")
+  log(f"phase 13: two sharded train steps (AdamW state placed by "
+      f"opt_state_pspecs): losses {losses[0]:.6f}, {losses[1]:.6f} at lr "
+      f"{lrs[0]:.3g}, {lrs[1]:.3g} (the warm-up's first lr is 0); the "
+      f"second took {train_ms:.1f} ms (host clock, synchronized)")
+
+  dry = collect_dryrun_child(child)
+  checks = {}
+  for name, real_flops, real_args in (
+      ("prefill_1x1", prefill_flops, arg_prefill),
+      ("train_1x1", train_flops, arg_train)):
+    rec = dry[name]
+    checks[name] = {"dry_flops": rec["flops"], "card_flops": real_flops,
+                    "dry_argument_bytes": rec["argument_size_in_bytes"],
+                    "card_storage_bytes": real_args,
+                    "dry_temp_bytes": rec["temp_size_in_bytes"],
+                    "trace_s": rec["trace_s"]}
+    log(f"phase 13: dry run {name}: flops {rec['flops']:.6e} (card "
+        f"{real_flops:.6e}), argument bytes {rec['argument_size_in_bytes']:,}"
+        f" (card storage {real_args:,}), temp bytes "
+        f"{rec['temp_size_in_bytes']:,}, traced in {rec['trace_s']} s")
+    if rec["flops"] != real_flops:
+      raise AssertionError(f"phase 13: {name}: the dry run's flops differ "
+                           "from the card's count")
+    if rec["argument_size_in_bytes"] != real_args:
+      raise AssertionError(f"phase 13: {name}: the dry run's argument bytes "
+                           "differ from what the card holds")
+  shares = {}
+  for name, flops, ms in (("prefill", prefill_flops, shard_ms),
+                          ("train_step", train_flops, train_ms)):
+    shares[name] = flops / (ms * 1e-3) / H100_BF16_FLOPS_PER_S
+    log(f"phase 13: {name} {b}x{s}: {flops:.4e} FLOPs (analysis, the card's "
+        f"run) / {ms:.2f} ms / {H100_BF16_FLOPS_PER_S:.3g} FLOP/s (data "
+        f"sheet, dense bf16) = {shares[name]:.4f} of peak")
+  for name in ("decode_32k_seq", "train_4k_2x16x16"):
+    rec = dry[name]
+    log(f"phase 13: dry run granite-3-2b {name} on {rec['devices']} fake "
+        f"ranks: flops {rec['flops']:.4e}, collective bytes "
+        f"{rec['collective_bytes']:.4e}, argument bytes "
+        f"{rec['argument_size_in_bytes']:,}, temp bytes "
+        f"{rec['temp_size_in_bytes']:,} a rank, traced in {rec['trace_s']} s")
+  log(f"phase 13: dry run long_500k: {dry['long_500k_skipped']}; the child "
+      f"took {dry['wall_s']:.1f} s")
+  dec, trn = dry["decode_32k_seq"], dry["train_4k_2x16x16"]
+  if not (dec["devices"] == 256 and trn["devices"] == 512
+          and dec["flops"] > 0 and dec["collective_bytes"] < 1e9
+          and trn["flops"] > 1e13 and dry["long_500k_skipped"]):
+    raise AssertionError("phase 13: the dry run's cells miss the reference "
+                         "test's bounds: " + json.dumps(dry))
+  del sp, params, opt
+  return {"config": cfg.name, "batch": [b, s], "shared_storage": shared,
+          "prefill_ms": {"sharded": shard_ms, "unsharded": plain_ms},
+          "fwd_bwd_s": {"sharded": grad_shard_s, "unsharded": grad_plain_s},
+          "train_step_ms": train_ms, "losses": losses,
+          "flops_share": shares, "dry_vs_card": checks, "dryrun": dry}
+
+
+def _leaves(tree):
+  from repro_torch._tree import tree_leaves
+  return tree_leaves(tree)
+
+
+def _sharded_scan(mesh, ss_mod, ell_mod, seed: int) -> dict:
+  """Falcon-Mamba-7B, 8 of 64 layers at full width, ``ssm_impl="fused"``,
+  on the 1×1 mesh: the CUDA scan through ``local_map``."""
+  import torch
+  from repro_torch import configs
+  from repro_torch.models import common as cm
+  from repro_torch.models.transformer import build_model
+  from repro_torch.serve.engine import make_prefill
+  from repro_torch.train import synthetic_batch
+
+  full = configs.get_config(SHARD_SCAN_ARCH)
+  cfg = full.scaled(num_layers=SHARD_SCAN_LAYERS, ssm_impl="fused")
+  sharded = build_model(cfg, tp=1, dp_spec="data")
+  defs = sharded.defs()
+  params = cm.init_params(defs, torch.Generator(device="cuda")
+                          .manual_seed(seed))
+  sp = cm.distribute_params(params, cm.param_shardings(defs, mesh))
+  b, s = SHARD_BATCH
+  prompt = {"tokens": synthetic_batch(cfg, b, s, seed=seed)["tokens"]}
+  want = make_prefill(build_model(cfg))(params, prompt)
+  ss_mod.launches = 0
+  ell_mod.launches.reset()
+  got = make_prefill(sharded)(sp, _place_batch(prompt, mesh, cfg))
+  launches = ss_mod.launches
+  ell = ell_mod.launches.total
+  bitwise(got, want, "fused-scan prefill logits")
+  log(f"phase 13: {cfg.name} ({SHARD_SCAN_LAYERS} of {full.num_layers} "
+      f"layers, ssm_impl='fused') prefill {b}x{s} on the 1x1 mesh: "
+      f"{launches} scan launches through local_map (ELL {ell}); logits == "
+      f"the unsharded fused prefill's bit for bit")
+  if launches != SHARD_SCAN_LAYERS or ell:
+    raise AssertionError(f"phase 13: {launches} scan launches (ELL {ell}) in "
+                         f"a sharded prefill of {SHARD_SCAN_LAYERS} layers")
+  return {"config": cfg.name, "num_layers": SHARD_SCAN_LAYERS,
+          "scan_launches": launches, "ell_launches": ell}
+
+
 def main(argv=None) -> int:
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   ap.add_argument("--scale", type=int, default=20,
@@ -3001,19 +3355,29 @@ def main(argv=None) -> int:
     raise AssertionError("phase 11: a kernel was launched on these paths")
   families["kernel_launches"] = family_launches
   torch.cuda.empty_cache()
-  ell_mod.launches.reset()
-  ss_mod.launches = 0
-  t0 = time.perf_counter()
-  train = phase_train()
-  train_launches = {"ell_spmv": ell_mod.launches.total,
-                    "selective_scan": ss_mod.launches}
-  log("phase 12: kernel launches on the train path (no backward exists for "
-      "either kernel) " + json.dumps(train_launches))
-  if any(train_launches.values()):
-    raise AssertionError("phase 12: a kernel was launched on the train path")
-  train["kernel_launches"] = train_launches
-  train["eval_fused"] = phase_eval_fused(ss_mod)
-  log(f"phase 12: took {time.perf_counter() - t0:.1f} s")
+  # The dry run's child is host-only: it runs beside phases 12 and 13.
+  child = start_dryrun_child()
+  try:
+    ell_mod.launches.reset()
+    ss_mod.launches = 0
+    t0 = time.perf_counter()
+    train = phase_train()
+    train_launches = {"ell_spmv": ell_mod.launches.total,
+                      "selective_scan": ss_mod.launches}
+    log("phase 12: kernel launches on the train path (no backward exists "
+        "for either kernel) " + json.dumps(train_launches))
+    if any(train_launches.values()):
+      raise AssertionError("phase 12: a kernel was launched on the train "
+                           "path")
+    train["kernel_launches"] = train_launches
+    train["eval_fused"] = phase_eval_fused(ss_mod)
+    log(f"phase 12: took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded = phase_sharded(ss_mod, ell_mod, child)
+    log(f"phase 13: took {time.perf_counter() - t0:.1f} s")
+  finally:
+    stop_dryrun_child(child)
   b, s, _, _ = FALCON_SCAN
   entries.append({
       "name": f"selective_scan[falcon-mamba-7b,f32,B={b},S={s}]",
@@ -3032,7 +3396,7 @@ def main(argv=None) -> int:
       "ell_ms_by_frontier": by_frontier, "superstep_split": split,
       "suite": suite, "scan": scan, "lm": lm, "dist2d": dist2d,
       "granite": granite, "moe": moe, "families": families,
-      "train": train}, indent=1))
+      "train": train, "sharded": sharded}, indent=1))
   log(card)
   print(json.dumps({"kernels": entries}), flush=True)
   print(json.dumps({"ok": True, "device": {

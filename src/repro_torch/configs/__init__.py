@@ -1,14 +1,11 @@
-"""Assigned-architecture registry (10 archs), copied from :mod:`repro.configs`.
-
-The input-shape table of the reference (``SHAPES``, ``shape_supported``)
-belongs to its dry-run launcher and waits for the port of ``launch/``.
-"""
+"""Assigned-architecture registry (10 archs) + input-shape definitions,
+copied from :mod:`repro.configs`."""
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
@@ -65,3 +62,23 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
   if cfg.sliding_window:
     kw.update(sliding_window=8)
   return dataclasses.replace(cfg, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned): seq_len × global_batch per cell.
+# ---------------------------------------------------------------------------
+
+SHAPES: Dict[str, Dict] = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+
+def shape_supported(cfg: ModelConfig, shape: str) -> bool:
+  """Which (arch × shape) cells run: long_500k needs sub-quadratic
+  attention; pure full-attention archs skip it."""
+  if shape == "long_500k":
+    return cfg.supports_long_decode
+  return True

@@ -9,8 +9,15 @@ attends over a ring-buffer cache without repeating the KV heads; MLA
 decode attends over the compressed latent cache with the up-projections
 absorbed into the query and the output.
 
-There is one device and no mesh, so Q heads are padded for a tensor axis
-of 1 (``cfg.padded_heads(1)``, the published head count).
+Sharding, as in the reference: Q heads are padded to a multiple of the
+tensor-parallel degree ``tp`` (``cfg.padded_heads(tp)``; at ``tp=1`` the
+published head count) and sharded on "model"; KV projections whose head
+count does not divide ``tp`` stay replicated.  With DTensor parameters the
+ops below run sharded as DTensor propagates their placements; the chunked
+attention (per batch × head shard), the decode cache's slot write and,
+where the cache is split over its slots (the ``"seq"`` layout), the decode
+attention run per shard through ``local_map``
+(:mod:`repro_torch.models.sharding`).
 """
 
 from __future__ import annotations
@@ -20,8 +27,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import (ParamDef, apply_rope, out_proj_einsum,
-                                       rms_norm)
+from repro_torch.models import sharding as shd
+from repro_torch.models.common import (P, ParamDef, apply_rope,
+                                       out_proj_einsum, rms_norm, whole_on)
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -62,8 +70,17 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
 
   Online softmax over KV chunks of ``kv_chunk`` keys; equal, up to float
   rounding, to softmax(QKᵀ)V with the causal/SWA mask applied.  A ragged
-  tail is padded with keys at position ``MASKED_POS``.
+  tail is padded with keys at position ``MASKED_POS``.  On DTensors it
+  runs per (batch shard × head shard) (``sharding.per_head``).
   """
+  return shd.per_head(_chunked_attention, q, k, v, q_pos, k_pos,
+                      window=window, causal=causal, kv_chunk=kv_chunk,
+                      scale=scale)
+
+
+def _chunked_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                       k_pos: Tensor, *, window: int, causal: bool,
+                       kv_chunk: int, scale: Optional[float]) -> Tensor:
   b, s, h, d = q.shape
   t = k.shape[1]
   scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -148,29 +165,32 @@ def grouped_decode_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def gqa_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def gqa_defs(cfg: ModelConfig, tp: int = 1) -> Dict[str, ParamDef]:
   d, hd = cfg.d_model, cfg.resolved_head_dim
-  hp = cfg.padded_heads(1)
+  hp = cfg.padded_heads(tp)
   kv = cfg.num_kv_heads
+  kv_shardable = kv % tp == 0
+  kv_spec = P(None, "model") if kv_shardable else P(None, None)
   defs = {
-      "wq": ParamDef((d, hp * hd)),
-      "wk": ParamDef((d, kv * hd)),
-      "wv": ParamDef((d, kv * hd)),
-      "wo": ParamDef((hp * hd, d)),
+      "wq": ParamDef((d, hp * hd), P(None, "model")),
+      "wk": ParamDef((d, kv * hd), kv_spec),
+      "wv": ParamDef((d, kv * hd), kv_spec),
+      "wo": ParamDef((hp * hd, d), P("model", None)),
   }
   if cfg.qkv_bias:
-    defs["bq"] = ParamDef((hp * hd,), init="zeros")
-    defs["bk"] = ParamDef((kv * hd,), init="zeros")
-    defs["bv"] = ParamDef((kv * hd,), init="zeros")
+    kv_bias_spec = P("model") if kv_shardable else P(None)
+    defs["bq"] = ParamDef((hp * hd,), P("model"), init="zeros")
+    defs["bk"] = ParamDef((kv * hd,), kv_bias_spec, init="zeros")
+    defs["bv"] = ParamDef((kv * hd,), kv_bias_spec, init="zeros")
   return defs
 
 
-def gqa_qkv(params, x: Tensor, positions: Tensor, cfg: ModelConfig
-            ) -> Tuple[Tensor, Tensor, Tensor]:
+def gqa_qkv(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
+            tp: int = 1) -> Tuple[Tensor, Tensor, Tensor]:
   """Project + rope.  x [B,S,d] -> q [B,S,Hp,hd], k/v [B,S,KV,hd]."""
   b, s, _ = x.shape
   hd = cfg.resolved_head_dim
-  hp = cfg.padded_heads(1)
+  hp = cfg.padded_heads(tp)
   kv = cfg.num_kv_heads
   cd = cfg.compute_dtype
   q = torch.matmul(x, params["wq"].to(cd))
@@ -180,16 +200,21 @@ def gqa_qkv(params, x: Tensor, positions: Tensor, cfg: ModelConfig
     q = q + params["bq"].to(cd)
     k = k + params["bk"].to(cd)
     v = v + params["bv"].to(cd)
+  if kv % tp:
+    # KV heads that do not divide the tensor axis stay whole on it, as
+    # their replicated weights say (DTensor may pick a column split).
+    k, v = whole_on(k, "model"), whole_on(v, "model")
   q = apply_rope(q.reshape(b, s, hp, hd), positions, cfg.rope_theta)
   k = apply_rope(k.reshape(b, s, kv, hd), positions, cfg.rope_theta)
   return q, k, v.reshape(b, s, kv, hd)
 
 
-def gqa_forward(params, x: Tensor, positions: Tensor, cfg: ModelConfig, *,
-                causal: bool = True, kv_chunk: int = 1024) -> Tensor:
+def gqa_forward(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
+                tp: int = 1, *, causal: bool = True, kv_chunk: int = 1024
+                ) -> Tensor:
   """Full-sequence GQA attention (prefill)."""
-  q, k, v = gqa_qkv(params, x, positions, cfg)
-  n_rep = cfg.padded_heads(1) // cfg.num_kv_heads
+  q, k, v = gqa_qkv(params, x, positions, cfg, tp)
+  n_rep = cfg.padded_heads(tp) // cfg.num_kv_heads
   k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
   out = chunked_attention(q, k, v, positions, positions,
                           window=cfg.sliding_window, causal=causal,
@@ -200,7 +225,8 @@ def gqa_forward(params, x: Tensor, positions: Tensor, cfg: ModelConfig, *,
 
 
 def gqa_decode(params, x: Tensor, cache: Dict[str, Tensor], pos,
-               cfg: ModelConfig) -> Tuple[Tensor, Dict[str, Tensor]]:
+               cfg: ModelConfig, tp: int = 1
+               ) -> Tuple[Tensor, Dict[str, Tensor]]:
   """One-token decode.  x [B,1,d]; cache {"k","v": [B,T,KV,hd]}; ``pos``
   the token's position, a Python int or a 0-d tensor (the same slot and
   mask either way).
@@ -214,16 +240,20 @@ def gqa_decode(params, x: Tensor, cache: Dict[str, Tensor], pos,
   Returns (out [B,1,d], updated cache)."""
   pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
   positions = pos.reshape(1)
-  q, k, v = gqa_qkv(params, x, positions, cfg)
+  q, k, v = gqa_qkv(params, x, positions, cfg, tp)
   t = cache["k"].shape[1]
   slot = torch.remainder(positions, t).long()
-  ck = cache["k"].index_copy(1, slot, k)
-  cv = cache["v"].index_copy(1, slot, v)
-  s_idx = torch.arange(t, dtype=torch.int32, device=x.device)
-  k_pos = pos - torch.remainder(pos - s_idx, t)
-  k_pos = torch.where(k_pos >= 0, k_pos, MASKED_POS)
-  out = grouped_decode_attention(q, ck, cv, positions, k_pos,
-                                 window=cfg.sliding_window)
+  ck = shd.write_slot(cache["k"], slot, k)
+  cv = shd.write_slot(cache["v"], slot, v)
+  if shd.is_split(ck, 1):
+    out = shd.slot_sharded_decode_attention(q, ck, cv, pos,
+                                            window=cfg.sliding_window)
+  else:
+    s_idx = torch.arange(t, dtype=torch.int32, device=x.device)
+    k_pos = pos - torch.remainder(pos - s_idx, t)
+    k_pos = torch.where(k_pos >= 0, k_pos, MASKED_POS)
+    out = grouped_decode_attention(q, ck, cv, positions, k_pos,
+                                   window=cfg.sliding_window)
   out = out_proj_einsum("bsh,hd->bsd", out.reshape(x.shape[0], 1, -1),
                         params["wo"], cfg)
   return out, {"k": ck, "v": cv}
@@ -234,24 +264,27 @@ def gqa_decode(params, x: Tensor, cache: Dict[str, Tensor], pos,
 # ---------------------------------------------------------------------------
 
 
-def mla_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def mla_defs(cfg: ModelConfig, tp: int = 1) -> Dict[str, ParamDef]:
   d = cfg.d_model
-  hp = cfg.padded_heads(1)
+  hp = cfg.padded_heads(tp)
   qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
   return {
-      "wq_a": ParamDef((d, cfg.q_lora_rank)),
-      "q_norm": ParamDef((cfg.q_lora_rank,), init="ones"),
-      "wq_b": ParamDef((cfg.q_lora_rank, hp * qk)),
-      "wkv_a": ParamDef((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim)),
-      "kv_norm": ParamDef((cfg.kv_lora_rank,), init="ones"),
-      "wk_b": ParamDef((cfg.kv_lora_rank, hp * cfg.qk_nope_head_dim)),
-      "wv_b": ParamDef((cfg.kv_lora_rank, hp * cfg.v_head_dim)),
-      "wo": ParamDef((hp * cfg.v_head_dim, d)),
+      "wq_a": ParamDef((d, cfg.q_lora_rank), P(None, None)),
+      "q_norm": ParamDef((cfg.q_lora_rank,), P(None), init="ones"),
+      "wq_b": ParamDef((cfg.q_lora_rank, hp * qk), P(None, "model")),
+      "wkv_a": ParamDef((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                        P(None, None)),
+      "kv_norm": ParamDef((cfg.kv_lora_rank,), P(None), init="ones"),
+      "wk_b": ParamDef((cfg.kv_lora_rank, hp * cfg.qk_nope_head_dim),
+                       P(None, "model")),
+      "wv_b": ParamDef((cfg.kv_lora_rank, hp * cfg.v_head_dim),
+                       P(None, "model")),
+      "wo": ParamDef((hp * cfg.v_head_dim, d), P("model", None)),
   }
 
 
-def _mla_q(params, x: Tensor, positions: Tensor, cfg: ModelConfig
-           ) -> Tuple[Tensor, Tensor]:
+def _mla_q(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
+           tp: int = 1) -> Tuple[Tensor, Tensor]:
   """x [B,S,d] -> (q_nope [B,S,H,nope], roped q_rope [B,S,H,rope])."""
   cd = cfg.compute_dtype
   b, s, _ = x.shape
@@ -259,7 +292,7 @@ def _mla_q(params, x: Tensor, positions: Tensor, cfg: ModelConfig
   ql = torch.matmul(x, params["wq_a"].to(cd))
   ql = rms_norm(ql, params["q_norm"], cfg.norm_eps)
   q = torch.matmul(ql, params["wq_b"].to(cd))
-  q = q.reshape(b, s, cfg.padded_heads(1), nope + rope_d)
+  q = q.reshape(b, s, cfg.padded_heads(tp), nope + rope_d)
   q_nope, q_rope = q[..., :nope], q[..., nope:]
   return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -275,18 +308,19 @@ def _mla_ckv(params, x: Tensor, positions: Tensor, cfg: ModelConfig
   return c_kv, k_rope[:, :, 0, :]
 
 
-def mla_forward(params, x: Tensor, positions: Tensor, cfg: ModelConfig, *,
-                causal: bool = True, kv_chunk: int = 1024) -> Tensor:
+def mla_forward(params, x: Tensor, positions: Tensor, cfg: ModelConfig,
+                tp: int = 1, *, causal: bool = True, kv_chunk: int = 1024
+                ) -> Tensor:
   """Full-sequence MLA (prefill): decompress K and V from the latent, join
   the nope and rope parts into one score space, pad V to the QK head
   dimension for the shared chunked attention, and slice the output back
   to ``v_head_dim``."""
   cd = cfg.compute_dtype
   b, s, _ = x.shape
-  hp = cfg.padded_heads(1)
+  hp = cfg.padded_heads(tp)
   nope, rope_d, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                       cfg.v_head_dim)
-  q_nope, q_rope = _mla_q(params, x, positions, cfg)
+  q_nope, q_rope = _mla_q(params, x, positions, cfg, tp)
   c_kv, k_rope = _mla_ckv(params, x, positions, cfg)
   k_nope = torch.matmul(c_kv, params["wk_b"].to(cd)).reshape(b, s, hp, nope)
   v = torch.matmul(c_kv, params["wv_b"].to(cd)).reshape(b, s, hp, vd)
@@ -302,7 +336,8 @@ def mla_forward(params, x: Tensor, positions: Tensor, cfg: ModelConfig, *,
 
 
 def mla_decode(params, x: Tensor, cache: Dict[str, Tensor], pos,
-               cfg: ModelConfig) -> Tuple[Tensor, Dict[str, Tensor]]:
+               cfg: ModelConfig, tp: int = 1
+               ) -> Tuple[Tensor, Dict[str, Tensor]]:
   """Weight-absorbed MLA decode over the *compressed* cache.
 
   cache: {"c_kv": [B,T,R], "k_rope": [B,T,Dr]} — the MLA memory win.
@@ -314,16 +349,16 @@ def mla_decode(params, x: Tensor, cache: Dict[str, Tensor], pos,
   was.  Returns (out [B,1,d], updated cache)."""
   cd = cfg.compute_dtype
   b = x.shape[0]
-  hp = cfg.padded_heads(1)
+  hp = cfg.padded_heads(tp)
   nope, vd, r = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
   pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
   positions = pos.reshape(1)
-  q_nope, q_rope = _mla_q(params, x, positions, cfg)           # [B,1,H,*]
+  q_nope, q_rope = _mla_q(params, x, positions, cfg, tp)       # [B,1,H,*]
   c_kv, k_rope = _mla_ckv(params, x, positions, cfg)           # [B,1,*]
   t = cache["c_kv"].shape[1]
   slot = torch.clamp(positions, 0, t - 1).long()
-  cc = cache["c_kv"].index_copy(1, slot, c_kv)
-  cr = cache["k_rope"].index_copy(1, slot, k_rope)
+  cc = shd.write_slot(cache["c_kv"], slot, c_kv)
+  cr = shd.write_slot(cache["k_rope"], slot, k_rope)
   wk_b = params["wk_b"].to(cd).reshape(r, hp, nope).float()
   q_abs = torch.einsum("bshn,rhn->bshr", q_nope.float(), wk_b)  # [B,1,H,R]
   scale = 1.0 / math.sqrt(nope + cfg.qk_rope_head_dim)

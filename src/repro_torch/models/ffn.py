@@ -6,15 +6,15 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models.common import ParamDef, out_proj_einsum
+from repro_torch.models.common import P, ParamDef, out_proj_einsum
 from repro_torch.models.config import ModelConfig
 
 
 def swiglu_defs(d_model: int, d_ff: int) -> Dict[str, ParamDef]:
   return {
-      "w_gate": ParamDef((d_model, d_ff)),
-      "w_up": ParamDef((d_model, d_ff)),
-      "w_down": ParamDef((d_ff, d_model)),
+      "w_gate": ParamDef((d_model, d_ff), P(None, "model")),
+      "w_up": ParamDef((d_model, d_ff), P(None, "model")),
+      "w_down": ParamDef((d_ff, d_model), P("model", None)),
   }
 
 

@@ -21,8 +21,17 @@ adds no matmul FLOPs, while the one-hot dispatch einsums cost O(T·E·Cg·d).
 Tokens are routed in fixed-size **groups** (≤ ``group_size`` tokens) with a
 per-group expert capacity.  Every function here takes all groups at once,
 as tensors with a leading group axis ``[G, Tg, ...]`` (the reference maps
-one group with ``vmap``).  On one card there is no mesh, so the
-reference's sharding constraints and the expert-parallel layouts go.
+one group with ``vmap``).
+
+Sharding, as in the reference: "ep" shards the expert axis over "model"
+(DeepSeek-V2: 160/16 = 10 experts a column); "tp" shards each expert's
+hidden over "model" (Mixtral: 8 wide experts, 14336/16 = 896 each).  With
+DTensor parameters and a ``dp_spec``, the reference's sharding constraints
+become redistributions (:func:`repro_torch.models.sharding.constrain`): the
+dispatch all-to-all to the expert-sharded ``[G(data), E, Cg, d]`` layout and
+the combine's back to token-sharded.  The routing and the combine touch one
+group at a time, and DTensor has no rule for their sort and scatters, so
+they run per shard of the group axis (``sharding.per_group``).
 
 Tie-breaking follows the reference: top-k puts the lower expert first on
 equal probabilities (a stable descending sort, not ``torch.topk``), and the
@@ -36,7 +45,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.models.common import ParamDef, out_proj_einsum
+from repro_torch.models import sharding as shd
+from repro_torch.models.common import P, ParamDef, out_proj_einsum
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -44,18 +54,24 @@ Tensor = torch.Tensor
 
 def moe_defs(cfg: ModelConfig) -> Dict[str, object]:
   d, ff, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+  if cfg.moe_sharding == "ep":
+    up_spec = P("model", None, None)
+    down_spec = P("model", None, None)
+  else:
+    up_spec = P(None, None, "model")
+    down_spec = P(None, "model", None)
   defs = {
-      "router": ParamDef((d, e), scale=0.02),
-      "w_gate": ParamDef((e, d, ff)),
-      "w_up": ParamDef((e, d, ff)),
-      "w_down": ParamDef((e, ff, d)),
+      "router": ParamDef((d, e), P(None, None), scale=0.02),
+      "w_gate": ParamDef((e, d, ff), up_spec),
+      "w_up": ParamDef((e, d, ff), up_spec),
+      "w_down": ParamDef((e, ff, d), down_spec),
   }
   if cfg.num_shared_experts:
     sff = cfg.moe_d_ff * cfg.num_shared_experts
     defs["shared"] = {
-        "w_gate": ParamDef((d, sff)),
-        "w_up": ParamDef((d, sff)),
-        "w_down": ParamDef((sff, d)),
+        "w_gate": ParamDef((d, sff), P(None, "model")),
+        "w_up": ParamDef((d, sff), P(None, "model")),
+        "w_down": ParamDef((sff, d), P("model", None)),
     }
   return defs
 
@@ -147,19 +163,24 @@ def _route_group_onehot(logits: Tensor, x: Tensor, top_k: int,
   return xe, comb
 
 
-def _experts(params, xe: Tensor, cfg: ModelConfig) -> Tensor:
+def _experts(params, xe: Tensor, cfg: ModelConfig,
+             constrain_h=lambda h: h) -> Tensor:
   """The routed experts' SwiGLU on their capacity slots: [G,E,Cg,d] ->
-  [G,E,Cg,d], the gate in float32 as in the reference."""
+  [G,E,Cg,d], the gate in float32 as in the reference; ``constrain_h``
+  places the hidden [G,E,Cg,ff]."""
   cd = cfg.compute_dtype
   h_g = torch.einsum("gecd,edf->gecf", xe, params["w_gate"].to(cd))
   h_u = torch.einsum("gecd,edf->gecf", xe, params["w_up"].to(cd))
-  h = torch.nn.functional.silu(h_g.float()).to(cd) * h_u
+  h = constrain_h(torch.nn.functional.silu(h_g.float()).to(cd) * h_u)
   return out_proj_einsum("gecf,efd->gecd", h, params["w_down"], cfg)
 
 
 def moe_forward(params, x: Tensor, cfg: ModelConfig, *,
-                group_size: int = 512, moe_impl: str = "sort") -> Tensor:
-  """x [B,S,d] -> [B,S,d].  See the module docstring."""
+                group_size: int = 512, dp_spec=None,
+                moe_impl: str = "sort") -> Tensor:
+  """x [B,S,d] -> [B,S,d].  See the module docstring.  ``dp_spec``: the
+  data mesh axes the group axis is constrained to ("data", ("pod",
+  "data")), or ``None`` for no constraint, as in the reference."""
   cd = cfg.compute_dtype
   b, s, d = x.shape
   tg = min(group_size, s)
@@ -168,15 +189,32 @@ def moe_forward(params, x: Tensor, cfg: ModelConfig, *,
   logits = torch.einsum("gtd,de->gte", xt, params["router"].to(cd))
   capacity = _group_capacity(cfg, tg)
 
+  e_axis = "model" if cfg.moe_sharding == "ep" else None
+  ff_axis = "model" if cfg.moe_sharding == "tp" else None
+
+  def constrain(z, spec):
+    return z if dp_spec is None else shd.constrain(z, spec)
+
   if moe_impl == "sort":
-    xe, aux = _route_group_sort(logits, xt, cfg.top_k, cfg.num_experts,
-                                capacity)
-    yt = _combine_group_sort(_experts(params, xe, cfg), aux, tg)
+    xe, *aux = shd.per_group(
+        lambda lg, xg: _flat(_route_group_sort(lg, xg, cfg.top_k,
+                                               cfg.num_experts, capacity)),
+        logits, xt, n_out=6)
+    # The dispatch all-to-all: [G(data), E, Cg, d] -> expert-sharded.
+    xe = constrain(xe, P(dp_spec, e_axis, None, None))
+    ye = _experts(params, xe, cfg, lambda h: constrain(
+        h, P(dp_spec, e_axis, None, ff_axis)))
+    # The combine all-to-all: back to token-sharded for the local scatter.
+    ye = constrain(ye, P(dp_spec, None, None, None))
+    yt = shd.per_group(lambda y, *a: _combine_group_sort(y, a, tg), ye, *aux)
   else:
-    xe, comb = _route_group_onehot(logits, xt, cfg.top_k, cfg.num_experts,
-                                   capacity)
-    yt = torch.einsum("gtec,gecd->gtd", comb.to(cd),
-                      _experts(params, xe, cfg))
+    xe, comb = shd.per_group(
+        lambda lg, xg: _route_group_onehot(lg, xg, cfg.top_k,
+                                           cfg.num_experts, capacity),
+        logits, xt, n_out=2)
+    xe = constrain(xe, P(dp_spec, e_axis, None, None))
+    ye = constrain(_experts(params, xe, cfg), P(dp_spec, None, None, None))
+    yt = torch.einsum("gtec,gecd->gtd", comb.to(cd), ye)
 
   y = yt.reshape(b, s, d)
   if cfg.num_shared_experts:
@@ -188,13 +226,25 @@ def moe_forward(params, x: Tensor, cfg: ModelConfig, *,
   return y
 
 
+def _flat(routed):
+  xe, aux = routed
+  return (xe, *aux)
+
+
+def _hard_top_k(probs: Tensor, top_k: int, num_experts: int) -> Tensor:
+  """[N,E] probabilities -> [N,E] 0/1, one at each of the top k."""
+  _, idx = _top_k(probs, top_k)
+  return torch.nn.functional.one_hot(idx, num_experts).float().sum(dim=1)
+
+
 def moe_aux_loss(router_logits: Tensor, top_k: int,
                  num_experts: int) -> Tensor:
-  """Switch-style load-balancing auxiliary loss (mean over tokens)."""
+  """Switch-style load-balancing auxiliary loss (mean over tokens).  The
+  top-k picks run per token (``sharding.per_group`` on DTensors); the
+  means over tokens are global."""
   probs = torch.softmax(router_logits.float(), dim=-1)
   probs2 = probs.reshape(-1, num_experts)
-  _, idx = _top_k(probs2, top_k)
-  hard = torch.nn.functional.one_hot(idx, num_experts).float().sum(dim=1)
+  hard = shd.per_group(lambda p: _hard_top_k(p, top_k, num_experts), probs2)
   frac_tokens = hard.mean(dim=0)
   frac_probs = probs2.mean(dim=0)
   return num_experts * torch.sum(frac_tokens * frac_probs)

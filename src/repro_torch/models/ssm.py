@@ -6,8 +6,13 @@ a chunk, a loop across chunks), materializing the discretized [B,S,C,N]
 operands; under ``ssm_impl="fused"`` it runs as the hand-written CUDA
 selective-scan kernel
 (:func:`repro_torch.kernels.selective_scan.selective_scan`), which keeps the
-state out of device memory.  There is one device and no mesh, so the
-reference's ``shard_map`` around the kernel becomes a direct call.
+state out of device memory.  On DTensor inputs the kernel runs per shard
+through ``local_map`` with the reference's ``shard_map`` specs
+(:func:`_shard_mapped_fused_scan`): each rank scans its (batch shard ×
+channel shard) slice.
+
+Sharding, as in the reference: channels/heads shard over "model"; the B/C
+projections are small and replicated; states shard with channels.
 
 Mamba-2 (the hybrid family's layer) is SSD in its matmul form, as in the
 reference: within a chunk an attention-like masked product, across chunks
@@ -23,7 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.selective_scan import selective_scan
-from repro_torch.models.common import ParamDef, out_proj_einsum, rms_norm
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.models.common import (P, ParamDef, out_proj_einsum,
+                                       placements, rms_norm)
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
@@ -38,17 +47,20 @@ def mamba1_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
 def mamba1_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
   d = cfg.d_model
   d_inner, dt_rank, n = mamba1_dims(cfg)
+  # u and z projections kept separate so each output axis shards cleanly on
+  # "model", as in the reference.
   return {
-      "in_proj_u": ParamDef((d, d_inner)),
-      "in_proj_z": ParamDef((d, d_inner)),
-      "conv_w": ParamDef((cfg.ssm_conv, d_inner), scale=0.2),
-      "conv_b": ParamDef((d_inner,), init="zeros"),
-      "x_proj": ParamDef((d_inner, dt_rank + 2 * n)),
-      "dt_proj": ParamDef((dt_rank, d_inner)),
-      "dt_bias": ParamDef((d_inner,), init="zeros"),
-      "a_log": ParamDef((d_inner, n), init="ones"),
-      "d_skip": ParamDef((d_inner,), init="ones"),
-      "out_proj": ParamDef((d_inner, d)),
+      "in_proj_u": ParamDef((d, d_inner), P(None, "model")),
+      "in_proj_z": ParamDef((d, d_inner), P(None, "model")),
+      "conv_w": ParamDef((cfg.ssm_conv, d_inner), P(None, "model"),
+                         scale=0.2),
+      "conv_b": ParamDef((d_inner,), P("model"), init="zeros"),
+      "x_proj": ParamDef((d_inner, dt_rank + 2 * n), P("model", None)),
+      "dt_proj": ParamDef((dt_rank, d_inner), P(None, "model")),
+      "dt_bias": ParamDef((d_inner,), P("model"), init="zeros"),
+      "a_log": ParamDef((d_inner, n), P("model", None), init="ones"),
+      "d_skip": ParamDef((d_inner,), P("model"), init="ones"),
+      "out_proj": ParamDef((d_inner, d), P("model", None)),
   }
 
 
@@ -56,7 +68,39 @@ def _causal_conv(u: Tensor, w: Tensor, b: Tensor,
                  state: Optional[Tensor] = None) -> Tensor:
   """Depthwise causal conv1d as a sum of shifted products (not ``conv1d``,
   which goes through cuDNN).  u [B,S,C], w [K,C].  ``state``: [B,K-1,C]
-  prefix for decode continuation."""
+  prefix for decode continuation.  On DTensors it runs per (batch shard ×
+  channel shard) through ``local_map``: the conv is local to a channel, and
+  DTensor's rules for its pad and shifted sums differ across versions."""
+  if isinstance(u, DTensor):
+    return _per_channel_conv(u, w, b, state)
+  return _causal_conv_local(u, w, b, state)
+
+
+def _per_channel_conv(u, w, b, state):
+  """:func:`_causal_conv` per (batch shard × channel shard).  The weights
+  are whole over the batch's mesh axes, where each rank's gradient covers
+  its own rows: partial sums there."""
+  mesh = u.device_mesh
+  pu = tuple(Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(2)
+             else Replicate() for p in u.placements)
+  chan = [p == Shard(2) for p in pu]
+  rows = [p == Shard(0) for p in pu]
+  pw = tuple(Shard(1) if c else Replicate() for c in chan)
+  pb = tuple(Shard(0) if c else Replicate() for c in chan)
+  gw = tuple(Partial() if r else p for r, p in zip(rows, pw))
+  gb = tuple(Partial() if r else p for r, p in zip(rows, pb))
+  args, ins, grads = [u, w, b], [pu, pw, pb], [pu, gw, gb]
+  if state is not None:
+    args.append(state)
+    ins.append(pu)
+    grads.append(pu)
+  return local_map(lambda *a: _causal_conv_local(*a), out_placements=list(pu),
+                   in_placements=tuple(ins), in_grad_placements=tuple(grads),
+                   device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _causal_conv_local(u: Tensor, w: Tensor, b: Tensor,
+                       state: Optional[Tensor] = None) -> Tensor:
   k = w.shape[0]
   if state is None:
     up = F.pad(u, (0, 0, k - 1, 0))
@@ -128,8 +172,33 @@ def _gate_out(params, y: Tensor, u: Tensor, z: Tensor, cfg: ModelConfig,
   return out_proj_einsum(spec, y, params["out_proj"], cfg)
 
 
+def _shard_mapped_fused_scan(u: Tensor, dt: Tensor, a: Tensor, bmat: Tensor,
+                             cmat: Tensor, cfg: ModelConfig,
+                             dp_spec=None) -> Tensor:
+  """The fused selective scan, per shard.  On DTensors: ``local_map`` on the
+  inputs' mesh with the reference's ``shard_map`` specs (u, dt and y
+  ``P(dp, None, "model")``, a ``P("model", None)``, B and C ``P(dp, None,
+  None)``), so each rank scans its (batch shard × channel shard) slice with
+  the kernel (its plain version on the CPU).  On plain tensors: the kernel
+  itself."""
+  def local(u_, dt_, a_, b_, c_):
+    return selective_scan(u_, dt_, a_, b_.contiguous(), c_.contiguous(),
+                          seq_chunk=cfg.ssm_chunk)
+
+  if not isinstance(u, DTensor):
+    return local(u, dt, a, bmat, cmat)
+  mesh = u.device_mesh
+  dp = dp_spec
+  chan, ac, bc = (placements(P(dp, None, "model"), mesh),
+                  placements(P("model", None), mesh),
+                  placements(P(dp, None, None), mesh))
+  return local_map(local, out_placements=list(chan),
+                   in_placements=(chan, chan, ac, bc, bc), device_mesh=mesh,
+                   redistribute_inputs=True)(u, dt, a, bmat, cmat)
+
+
 def mamba1_forward(params, x: Tensor, cfg: ModelConfig,
-                   h0: Optional[Tensor] = None) -> Tensor:
+                   h0: Optional[Tensor] = None, dp_spec=None) -> Tensor:
   """x [B,S,d] -> [B,S,d] (prefill path)."""
   cd = cfg.compute_dtype
   b = x.shape[0]
@@ -142,8 +211,8 @@ def mamba1_forward(params, x: Tensor, cfg: ModelConfig,
   if cfg.ssm_impl == "fused":
     # The CUDA kernel: h stays in registers, the [B,S,C,N] discretization
     # never reaches device memory.
-    y = selective_scan(u.float(), dt, a, bmat.float().contiguous(),
-                       cmat.float().contiguous(), seq_chunk=cfg.ssm_chunk)
+    y = _shard_mapped_fused_scan(u.float(), dt, a, bmat.float(),
+                                 cmat.float(), cfg, dp_spec)
   else:
     # Discretize: a_bar, b_bar·u [B,S,C,N]; ssm_scan_dtype trades
     # scan-operand precision for device-memory bytes.
@@ -189,19 +258,22 @@ def mamba2_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
 def mamba2_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
   d = cfg.d_model
   d_inner, nheads, _, n = mamba2_dims(cfg)
-  # Projections split (z | x | BC | dt), as in the reference; one B/C group.
+  # Projections split (z | x | BC | dt), as in the reference, so sharded
+  # axes have clean boundaries; B/C (one group) and dt are small and
+  # replicated.
   return {
-      "in_proj_z": ParamDef((d, d_inner)),
-      "in_proj_x": ParamDef((d, d_inner)),
-      "in_proj_bc": ParamDef((d, 2 * n)),
-      "in_proj_dt": ParamDef((d, nheads)),
-      "conv_w": ParamDef((cfg.ssm_conv, d_inner + 2 * n), scale=0.2),
-      "conv_b": ParamDef((d_inner + 2 * n,), init="zeros"),
-      "a_log": ParamDef((nheads,), init="ones"),
-      "dt_bias": ParamDef((nheads,), init="zeros"),
-      "d_skip": ParamDef((nheads,), init="ones"),
-      "norm_g": ParamDef((d_inner,), init="ones"),
-      "out_proj": ParamDef((d_inner, d)),
+      "in_proj_z": ParamDef((d, d_inner), P(None, "model")),
+      "in_proj_x": ParamDef((d, d_inner), P(None, "model")),
+      "in_proj_bc": ParamDef((d, 2 * n), P(None, None)),
+      "in_proj_dt": ParamDef((d, nheads), P(None, "model")),
+      "conv_w": ParamDef((cfg.ssm_conv, d_inner + 2 * n), P(None, None),
+                         scale=0.2),
+      "conv_b": ParamDef((d_inner + 2 * n,), P(None), init="zeros"),
+      "a_log": ParamDef((nheads,), P("model"), init="ones"),
+      "dt_bias": ParamDef((nheads,), P("model"), init="zeros"),
+      "d_skip": ParamDef((nheads,), P("model"), init="ones"),
+      "norm_g": ParamDef((d_inner,), P("model"), init="ones"),
+      "out_proj": ParamDef((d_inner, d), P("model", None)),
   }
 
 

@@ -12,11 +12,22 @@ Python loop over the leading axis.  Under autograd each layer of that loop
 is rematerialized as ``cfg.remat`` says (:func:`_remat`); with grad off
 (serving) the layers run as they are.
 
-The public surface is :class:`Model` (closures over config):
-  * ``defs()``            — nested ParamDef tree
+The public surface is :class:`Model` (closures over config, the
+tensor-parallel degree ``tp`` and the data mesh axes ``dp_spec``):
+  * ``defs()``            — nested ParamDef tree (partition specs included)
   * ``forward``           — full-sequence logits (+ the MoE aux loss)
-  * ``init_cache``        — decode-state tree of zeros
+  * ``init_cache``        — decode-state tree of zeros (meta tensors when
+                            ``abstract``)
   * ``decode_step``       — one-token serving step
+
+Sharded, the parameters are DTensors placed by their specs
+(:func:`repro_torch.models.common.param_shardings`) and the batch or cache
+DTensors placed by :mod:`repro_torch.launch.specs`; ``forward`` and
+``decode_step`` then run the same code under DTensor's
+``implicit_replication`` (a plain tensor they make, a position or a mask,
+is replicated), with the reference's activation constraints
+(:meth:`Model._constrain`).  ``tp=1, dp_spec=None`` on plain tensors is the
+unsharded model, op for op.
 """
 
 from __future__ import annotations
@@ -34,8 +45,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffnlib
 from repro_torch.models import moe as moelib
 from repro_torch.models import ssm as ssmlib
-from repro_torch.models.common import (ParamDef, embed_lookup,
-                                       out_proj_einsum, rms_norm, unembed)
+from repro_torch.models import sharding as shd
+from repro_torch.models.common import (P, ParamDef, embed_lookup,
+                                       out_proj_einsum, rms_norm,
+                                       sharded_context, unembed)
 from repro_torch.models.config import ModelConfig
 
 PyTree = Any
@@ -48,13 +61,27 @@ Tensor = torch.Tensor
 
 
 def stack_defs(defs: PyTree, n: int) -> PyTree:
-  """Prepend a layer axis of size n to every ParamDef."""
-  return tree_map(lambda d: ParamDef((n,) + d.shape, d.dtype, d.init, d.scale),
-                  defs)
+  """Prepend a layer axis of size n to every ParamDef (replicated spec)."""
+  return tree_map(lambda d: ParamDef((n,) + d.shape, P(None, *d.pspec),
+                                     d.dtype, d.init, d.scale), defs)
 
 
-def _layer(stacked_params: PyTree, i: int) -> PyTree:
-  return tree_map(lambda t: t[i], stacked_params)
+def _layer(stacked: PyTree, i: int) -> PyTree:
+  return tree_map(lambda t: t[i], stacked)
+
+
+def _layer_params(stacked_params: PyTree, i: int) -> PyTree:
+  """Layer ``i``'s parameters, FSDP-gathered (``sharding.unshard_data``)."""
+  return tree_map(lambda t: shd.unshard_data(t[i]), stacked_params)
+
+
+def _unshard_data(params: PyTree) -> PyTree:
+  """The parameters outside the layer stacks, FSDP-gathered."""
+  return {k: v if k in _STACKS else tree_map(shd.unshard_data, v)
+          for k, v in params.items()}
+
+
+_STACKS = ("layers", "segments", "tail", "encoder")
 
 
 def _stack(*slices: Tensor) -> Tensor:
@@ -88,6 +115,7 @@ def _remat(fn, remat: str):
   the RNG state is not saved for the recomputation."""
   if remat == "none" or not torch.is_grad_enabled():
     return fn
+  fn = _replicating(fn)
   if remat == "full":
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
                              preserve_rng_state=False)
@@ -99,6 +127,16 @@ def _remat(fn, remat: str):
   raise ValueError(f"remat {remat!r}: expected none, full or selective")
 
 
+def _replicating(fn):
+  """``fn(layer_params, ...)`` under :func:`sharded_context` of its layer
+  parameters: the recomputation in the backward pass runs outside the
+  forward's context, and needs it again on DTensors."""
+  def run(lp, *rest):
+    with sharded_context(lp):
+      return fn(lp, *rest)
+  return run
+
+
 def scan_layers(stacked_params: PyTree, x: Tensor,
                 fn: Callable[[PyTree, Tensor], Tuple[Tensor, Any]],
                 remat: str = "none") -> Tuple[Tensor, Tensor]:
@@ -108,7 +146,7 @@ def scan_layers(stacked_params: PyTree, x: Tensor,
   body = _remat(fn, remat)
   aux = torch.zeros((), dtype=torch.float32, device=x.device)
   for i in range(_depth(stacked_params)):
-    x, a = body(_layer(stacked_params, i), x)
+    x, a = body(_layer_params(stacked_params, i), x)
     aux = aux + a
   return x, aux
 
@@ -120,7 +158,7 @@ def scan_layers_cache(stacked_params: PyTree, cache: PyTree, x: Tensor,
   passed in is left as it was."""
   slices = []
   for i in range(_depth(stacked_params)):
-    x, c = fn(_layer(stacked_params, i), _layer(cache, i), x)
+    x, c = fn(_layer_params(stacked_params, i), _layer(cache, i), x)
     slices.append(c)
   return x, tree_map(_stack, *slices)
 
@@ -130,34 +168,38 @@ def scan_layers_cache(stacked_params: PyTree, cache: PyTree, x: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _attn_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
-  a = attn.mla_defs(cfg) if cfg.use_mla else attn.gqa_defs(cfg)
-  return {"ln1": ParamDef((cfg.d_model,), init="ones"), "attn": a}
+def _norm_def(cfg: ModelConfig) -> ParamDef:
+  return ParamDef((cfg.d_model,), P(None), init="ones")
 
 
-def _attn_apply(params, x, positions, cfg, *, causal=True, kv_chunk=1024):
+def _attn_block_defs(cfg: ModelConfig, tp: int = 1) -> Dict[str, Any]:
+  a = attn.mla_defs(cfg, tp) if cfg.use_mla else attn.gqa_defs(cfg, tp)
+  return {"ln1": _norm_def(cfg), "attn": a}
+
+
+def _attn_apply(params, x, positions, cfg, tp=1, *, causal=True,
+                kv_chunk=1024):
   h = rms_norm(x, params["ln1"], cfg.norm_eps)
   fwd = attn.mla_forward if cfg.use_mla else attn.gqa_forward
-  return x + fwd(params["attn"], h, positions, cfg, causal=causal,
+  return x + fwd(params["attn"], h, positions, cfg, tp, causal=causal,
                  kv_chunk=kv_chunk)
 
 
-def _attn_apply_decode(params, x, cache, pos, cfg):
+def _attn_apply_decode(params, x, cache, pos, cfg, tp=1):
   h = rms_norm(x, params["ln1"], cfg.norm_eps)
   dec = attn.mla_decode if cfg.use_mla else attn.gqa_decode
-  out, cache = dec(params["attn"], h, cache, pos, cfg)
+  out, cache = dec(params["attn"], h, cache, pos, cfg, tp)
   return x + out, cache
 
 
 def _ffn_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
   if cfg.family == "moe":
-    return {"ln2": ParamDef((cfg.d_model,), init="ones"),
-            "moe": moelib.moe_defs(cfg)}
-  return {"ln2": ParamDef((cfg.d_model,), init="ones"),
+    return {"ln2": _norm_def(cfg), "moe": moelib.moe_defs(cfg)}
+  return {"ln2": _norm_def(cfg),
           "mlp": ffnlib.swiglu_defs(cfg.d_model, cfg.d_ff)}
 
 
-def _ffn_apply(params, x, cfg):
+def _ffn_apply(params, x, cfg, dp_spec=None):
   """Returns (x + the block's output, aux): the MoE load-balancing loss of
   router logits in the compute dtype, or 0.0."""
   h = rms_norm(x, params["ln2"], cfg.norm_eps)
@@ -167,20 +209,21 @@ def _ffn_apply(params, x, cfg):
   logits = torch.matmul(h, mp["router"].to(cfg.compute_dtype))
   aux = moelib.moe_aux_loss(logits, cfg.top_k, cfg.num_experts)
   out = moelib.moe_forward(mp, h, cfg, group_size=cfg.moe_group_size,
-                           moe_impl=cfg.moe_impl)
+                           dp_spec=dp_spec, moe_impl=cfg.moe_impl)
   return x + out, aux
 
 
 def _cross_attn(params, h: Tensor, mem: Tensor, positions: Tensor,
-                enc_pos: Tensor, cfg: ModelConfig, kv_chunk: int) -> Tensor:
+                enc_pos: Tensor, cfg: ModelConfig, kv_chunk: int,
+                tp: int = 1) -> Tensor:
   """The encdec decoder's cross attention block (prefill): q from the
   decoder, k and v from the encoder memory (both roped at their own
   positions), non-causal."""
   hn = rms_norm(h, params["ln_x"], cfg.norm_eps)
   xp = params["xattn"]
-  q, _, _ = attn.gqa_qkv(xp, hn, positions, cfg)
-  _, k, v = attn.gqa_qkv(xp, mem, enc_pos, cfg)
-  n_rep = cfg.padded_heads(1) // cfg.num_kv_heads
+  q, _, _ = attn.gqa_qkv(xp, hn, positions, cfg, tp)
+  _, k, v = attn.gqa_qkv(xp, mem, enc_pos, cfg, tp)
+  n_rep = cfg.padded_heads(tp) // cfg.num_kv_heads
   k, v = attn._repeat_kv(k, n_rep), attn._repeat_kv(v, n_rep)
   o = attn.chunked_attention(q, k, v, positions, enc_pos, causal=False,
                              kv_chunk=kv_chunk)
@@ -196,42 +239,39 @@ def _cross_attn(params, h: Tensor, mem: Tensor, positions: Tensor,
 @dataclasses.dataclass(frozen=True)
 class Model:
   cfg: ModelConfig
+  tp: int = 1
+  dp_spec: Any = None  # data mesh axes ("data" or ("pod","data")) or None
 
   # ---------------- defs ----------------
 
   def defs(self) -> PyTree:
-    cfg = self.cfg
-    vpad = cfg.padded_vocab(1)  # one device, no mesh yet
-    d = {"embed": ParamDef((vpad, cfg.d_model), scale=0.02),
-         "ln_f": ParamDef((cfg.d_model,), init="ones")}
+    cfg, tp = self.cfg, self.tp
+    vpad = cfg.padded_vocab(tp)
+    d = {"embed": ParamDef((vpad, cfg.d_model), P("model", None), scale=0.02),
+         "ln_f": _norm_def(cfg)}
     if not cfg.tie_embeddings:
-      d["lm_head"] = ParamDef((cfg.d_model, vpad))
+      d["lm_head"] = ParamDef((cfg.d_model, vpad), P(None, "model"))
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
-      layer = {**_attn_block_defs(cfg), **_ffn_block_defs(cfg)}
+      layer = {**_attn_block_defs(cfg, tp), **_ffn_block_defs(cfg)}
       d["layers"] = stack_defs(layer, cfg.num_layers)
     elif fam == "ssm":
-      layer = {"ln1": ParamDef((cfg.d_model,), init="ones"),
-               "ssm": ssmlib.mamba1_defs(cfg)}
+      layer = {"ln1": _norm_def(cfg), "ssm": ssmlib.mamba1_defs(cfg)}
       d["layers"] = stack_defs(layer, cfg.num_layers)
     elif fam == "hybrid":
       seg, per, tail = self._hybrid_split()
-      layer = {"ln1": ParamDef((cfg.d_model,), init="ones"),
-               "ssm": ssmlib.mamba2_defs(cfg)}
+      layer = {"ln1": _norm_def(cfg), "ssm": ssmlib.mamba2_defs(cfg)}
       d["segments"] = stack_defs(stack_defs(layer, per), seg)
       if tail:
         d["tail"] = stack_defs(layer, tail)
-      d["shared"] = {**_attn_block_defs(cfg),
-                     "ln2": ParamDef((cfg.d_model,), init="ones"),
+      d["shared"] = {**_attn_block_defs(cfg, tp), "ln2": _norm_def(cfg),
                      "mlp": ffnlib.swiglu_defs(cfg.d_model, cfg.d_ff)}
     elif fam == "encdec":
-      enc_layer = {**_attn_block_defs(cfg), **_ffn_block_defs(cfg)}
-      dec_layer = {**_attn_block_defs(cfg),
-                   "ln_x": ParamDef((cfg.d_model,), init="ones"),
-                   "xattn": attn.gqa_defs(cfg),
-                   **_ffn_block_defs(cfg)}
+      enc_layer = {**_attn_block_defs(cfg, tp), **_ffn_block_defs(cfg)}
+      dec_layer = {**_attn_block_defs(cfg, tp), "ln_x": _norm_def(cfg),
+                   "xattn": attn.gqa_defs(cfg, tp), **_ffn_block_defs(cfg)}
       d["encoder"] = stack_defs(enc_layer, cfg.encoder_layers)
-      d["enc_ln_f"] = ParamDef((cfg.d_model,), init="ones")
+      d["enc_ln_f"] = _norm_def(cfg)
       d["layers"] = stack_defs(dec_layer, cfg.num_layers)
     else:
       raise ValueError(fam)
@@ -245,6 +285,14 @@ class Model:
 
   # ---------------- forward ----------------
 
+  def _constrain(self, x: Tensor, *tail) -> Tensor:
+    """Batch-axis activation sharding, ``P(dp_spec, *tail)``, on a DTensor
+    (:func:`repro_torch.models.sharding.constrain`); a no-op when
+    ``dp_spec`` is unset, as in the reference."""
+    if self.dp_spec is None:
+      return x
+    return shd.constrain(x, P(self.dp_spec, *tail))
+
   def embed_inputs(self, params, batch: Dict[str, Tensor]) -> Tensor:
     """Token embeddings; the vlm family prepends ``batch["vision_embeds"]``
     [B,F,d] (the patch-embedding stub's output), cast to the compute
@@ -253,7 +301,7 @@ class Model:
     x = embed_lookup(params["embed"], batch["tokens"], cd)
     if self.cfg.family == "vlm":
       x = torch.cat([batch["vision_embeds"].to(cd), x], dim=1)
-    return x
+    return self._constrain(x, None, None)
 
   def forward(self, params, batch: Dict[str, Tensor], *,
               kv_chunk: int = 1024) -> Tuple[Tensor, Tensor]:
@@ -262,7 +310,12 @@ class Model:
     ``enc_frames`` [B,T,d] (encdec) or ``vision_embeds`` [B,F,d] (vlm,
     which then returns F + S positions).  ``kv_chunk``: keys per chunk of
     the attention's online softmax."""
-    cfg = self.cfg
+    with sharded_context(params):
+      return self._forward(_unshard_data(params), batch, kv_chunk)
+
+  def _forward(self, params, batch: Dict[str, Tensor],
+               kv_chunk: int) -> Tuple[Tensor, Tensor]:
+    cfg, tp, dp = self.cfg, self.tp, self.dp_spec
     fam = cfg.family
     x = self.embed_inputs(params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
@@ -270,13 +323,13 @@ class Model:
 
     if fam in ("dense", "moe", "vlm"):
       def block(lp, h):
-        h = _attn_apply(lp, h, positions, cfg, kv_chunk=kv_chunk)
-        return _ffn_apply(lp, h, cfg)
+        h = _attn_apply(lp, h, positions, cfg, tp, kv_chunk=kv_chunk)
+        return _ffn_apply(lp, h, cfg, dp)
       x, aux = scan_layers(params["layers"], x, block, cfg.remat)
     elif fam == "ssm":
       def block(lp, h):
         hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        return h + ssmlib.mamba1_forward(lp["ssm"], hn, cfg), 0.0
+        return h + ssmlib.mamba1_forward(lp["ssm"], hn, cfg, dp_spec=dp), 0.0
       x, _ = scan_layers(params["layers"], x, block, cfg.remat)
     elif fam == "hybrid":
       x = self._hybrid_forward(params, x, positions, kv_chunk)
@@ -292,7 +345,7 @@ class Model:
                     kv_chunk: int) -> Tensor:
     cfg = self.cfg
     sp = params["shared"]
-    h = _attn_apply(sp, h, positions, cfg, kv_chunk=kv_chunk)
+    h = _attn_apply(sp, h, positions, cfg, self.tp, kv_chunk=kv_chunk)
     hn = rms_norm(h, sp["ln2"], cfg.norm_eps)
     return h + ffnlib.swiglu(sp["mlp"], hn, cfg)
 
@@ -315,21 +368,22 @@ class Model:
     """The encoder (non-causal) over ``batch["enc_frames"]``, the stub
     frontend's output, then the decoder with cross attention over its
     normed memory."""
-    cfg = self.cfg
+    cfg, tp, dp = self.cfg, self.tp, self.dp_spec
     mem = batch["enc_frames"].to(cfg.compute_dtype)
     enc_pos = torch.arange(mem.shape[1], dtype=torch.int32, device=mem.device)
 
     def enc_block(lp, h):
-      h = _attn_apply(lp, h, enc_pos, cfg, causal=False, kv_chunk=kv_chunk)
-      return _ffn_apply(lp, h, cfg)
+      h = _attn_apply(lp, h, enc_pos, cfg, tp, causal=False,
+                      kv_chunk=kv_chunk)
+      return _ffn_apply(lp, h, cfg, dp)
 
     mem, _ = scan_layers(params["encoder"], mem, enc_block, cfg.remat)
     mem = rms_norm(mem, params["enc_ln_f"], cfg.norm_eps)
 
     def dec_block(lp, h):
-      h = _attn_apply(lp, h, positions, cfg, kv_chunk=kv_chunk)
-      h = _cross_attn(lp, h, mem, positions, enc_pos, cfg, kv_chunk)
-      return _ffn_apply(lp, h, cfg)
+      h = _attn_apply(lp, h, positions, cfg, tp, kv_chunk=kv_chunk)
+      h = _cross_attn(lp, h, mem, positions, enc_pos, cfg, kv_chunk, tp)
+      return _ffn_apply(lp, h, cfg, dp)
 
     x, _ = scan_layers(params["layers"], x_dec, dec_block, cfg.remat)
     return x
@@ -338,12 +392,13 @@ class Model:
     cfg = self.cfg
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return unembed(x, head, cfg.compute_dtype)
+    return self._constrain(unembed(x, head, cfg.compute_dtype), None, "model")
 
   # ---------------- decode ----------------
 
   def init_cache(self, batch_size: int, max_seq: int, *,
-                 device: DeviceLike = "cuda") -> PyTree:
+                 device: DeviceLike = "cuda", abstract: bool = False
+                 ) -> PyTree:
     """Decode state.  Dense, MoE and vlm: per layer a K and a V ring of
     ``min(max_seq, sliding_window)`` slots (``max_seq`` without a window),
     or with MLA the latent ``c_kv`` and ``k_rope`` of ``max_seq`` slots (not
@@ -353,9 +408,10 @@ class Model:
     for the shared block (``shared``).  Encdec: the decoder's K/V and the
     cross attention's ``ck``/``cv`` of ``encoder_seq`` slots, which stay
     zeros: as in the reference, nothing writes the encoder's memory into
-    them (ROADMAP Queue 3, item 9)."""
+    them (ROADMAP Queue 3, item 9).  ``abstract``: meta tensors of those
+    shapes and dtypes (the dry run: no allocation; ``device`` unused)."""
     cfg = self.cfg
-    dev = resolve_device(device)
+    dev = torch.device("meta") if abstract else resolve_device(device)
     L, B = cfg.num_layers, batch_size
     cd = cfg.compute_dtype
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -400,15 +456,20 @@ class Model:
     tensor (unused by the SSM family).  Takes tokens only, as the
     reference does: encdec and vlm decode see no frontend input.  Returns
     (logits [B,1,V], cache); the cache passed in is left as it was."""
-    cfg = self.cfg
+    with sharded_context(params):
+      return self._decode_step(_unshard_data(params), token, cache, pos)
+
+  def _decode_step(self, params, token: Tensor, cache: PyTree, pos
+                   ) -> Tuple[Tensor, PyTree]:
+    cfg, tp, dp = self.cfg, self.tp, self.dp_spec
     fam = cfg.family
     x = embed_lookup(params["embed"], token, cfg.compute_dtype)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
 
     if fam in ("dense", "moe", "vlm"):
       def block(lp, c, h):
-        h, c = _attn_apply_decode(lp, h, c, pos, cfg)
-        h, _ = _ffn_apply(lp, h, cfg)
+        h, c = _attn_apply_decode(lp, h, c, pos, cfg, tp)
+        h, _ = _ffn_apply(lp, h, cfg, dp)
         return h, c
       x, cache = scan_layers_cache(params["layers"], cache, x, block)
     elif fam == "ssm":
@@ -438,7 +499,8 @@ class Model:
     segments = params["segments"]
     attn_cs, ssm_cs = [], []
     for i in range(_depth(segments)):
-      x, ac = _attn_apply_decode(sp, x, _layer(cache["shared"], i), pos, cfg)
+      x, ac = _attn_apply_decode(sp, x, _layer(cache["shared"], i), pos, cfg,
+                                 self.tp)
       x = x + ffnlib.swiglu(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps),
                             cfg)
       x, sc = scan_layers_cache(_layer(segments, i),
@@ -458,7 +520,7 @@ class Model:
     """The decoder alone: self attention over the K/V ring, then grouped
     cross attention over ``ck``/``cv`` with the query's position pinned
     past the memory (every slot attended); ``ck``/``cv`` pass through."""
-    cfg = self.cfg
+    cfg, tp, dp = self.cfg, self.tp, self.dp_spec
     positions = pos.reshape(1)
     enc_pos = torch.arange(cfg.encoder_seq, dtype=torch.int32,
                            device=x.device)
@@ -466,17 +528,17 @@ class Model:
 
     def block(lp, c, h):
       h, self_c = _attn_apply_decode(lp, h, {"k": c["k"], "v": c["v"]}, pos,
-                                     cfg)
+                                     cfg, tp)
       hn = rms_norm(h, lp["ln_x"], cfg.norm_eps)
-      q, _, _ = attn.gqa_qkv(lp["xattn"], hn, positions, cfg)
+      q, _, _ = attn.gqa_qkv(lp["xattn"], hn, positions, cfg, tp)
       o = attn.grouped_decode_attention(q, c["ck"], c["cv"], q_pos, enc_pos)
       h = h + out_proj_einsum("bsh,hd->bsd", o.reshape(h.shape[0], 1, -1),
                               lp["xattn"]["wo"], cfg)
-      h, _ = _ffn_apply(lp, h, cfg)
+      h, _ = _ffn_apply(lp, h, cfg, dp)
       return h, {**self_c, "ck": c["ck"], "cv": c["cv"]}
 
     return scan_layers_cache(params["layers"], cache, x, block)
 
 
-def build_model(cfg: ModelConfig) -> Model:
-  return Model(cfg=cfg)
+def build_model(cfg: ModelConfig, tp: int = 1, dp_spec=None) -> Model:
+  return Model(cfg=cfg, tp=tp, dp_spec=dp_spec)

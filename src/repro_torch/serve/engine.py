@@ -1,7 +1,9 @@
 """Serving: prefill and one-token decode steps + a batched greedy loop.
 
 The port of :mod:`repro.serve.engine`.  Each step runs under
-``torch.inference_mode()``.  As in the reference, ``generate`` feeds the
+``torch.inference_mode()``, or under ``torch.no_grad()`` when the
+parameters are DTensors (DTensor's views cannot be made in inference
+mode).  As in the reference, ``generate`` feeds the
 prompt token by token through the decode step, so only ``make_prefill``
 (``Model.forward``) runs the sequence-level paths: the fused selective-scan
 kernel of the SSM family, the chunked attention of the dense family.  A
@@ -14,26 +16,34 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch._tree import tree_leaves
+from repro_torch.models.common import is_dtensor
 from repro_torch.models.transformer import Model
 
 PyTree = Any
 Tensor = torch.Tensor
 
 
+def _no_grad(params):
+  if is_dtensor(tree_leaves(params)[0]):
+    return torch.no_grad()
+  return torch.inference_mode()
+
+
 def make_prefill(model: Model):
   """prefill(params, batch) -> logits."""
-  @torch.inference_mode()
   def prefill(params, batch: Dict[str, Tensor]) -> Tensor:
-    logits, _ = model.forward(params, batch)
+    with _no_grad(params):
+      logits, _ = model.forward(params, batch)
     return logits
   return prefill
 
 
 def make_decode_step(model: Model):
   """step(params, token [B,1], cache, pos) -> (logits [B,1,V], cache)."""
-  @torch.inference_mode()
   def step(params, token: Tensor, cache: PyTree, pos):
-    return model.decode_step(params, token, cache, pos)
+    with _no_grad(params):
+      return model.decode_step(params, token, cache, pos)
   return step
 
 

@@ -18,9 +18,11 @@ package restores in the other:
 * **Cadence** — wall-clock based (``maybe_save``), so slow hosts do not
   skew a step-based cadence.
 
-The reference re-shards a restore onto a JAX mesh (``shardings``); the
-port's LM has no mesh yet, so a restore takes a ``device``, or a tree of
-devices shaped like the state.
+* **Mesh-agnostic layout** — a DTensor leaf is saved as its full tensor
+  (gathered over its mesh; rank 0 of the process group writes), so a
+  restore re-shards onto whatever mesh the resuming job has
+  (``shardings``, the elastic re-scale), or onto one ``device``, or a tree
+  of devices shaped like the state.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
 from repro_torch._device import resolve_device
 from repro_torch._tree import (tree_flatten, tree_flatten_with_path,
                                tree_unflatten)
@@ -43,6 +48,8 @@ PyTree = Any
 
 
 def _to_numpy(key: str, leaf) -> np.ndarray:
+  if isinstance(leaf, DTensor):
+    leaf = leaf.full_tensor()
   if isinstance(leaf, torch.Tensor):
     if leaf.dtype == torch.bfloat16:
       raise TypeError(f"checkpoint leaf {key!r} is bfloat16, which numpy "
@@ -52,25 +59,35 @@ def _to_numpy(key: str, leaf) -> np.ndarray:
 
 
 def save_checkpoint(directory: str, step: int, state: PyTree) -> str:
-  """Atomically write ``state`` under ``directory/step_{step:08d}``."""
-  os.makedirs(directory, exist_ok=True)
+  """Atomically write ``state`` under ``directory/step_{step:08d}``.  With
+  DTensor leaves every rank of the process group calls this (each leaf is
+  gathered, one at a time), rank 0 writes, and all return once the commit
+  is made."""
   final = os.path.join(directory, f"step_{step:08d}")
   tmp = final + ".tmp"
-  if os.path.exists(tmp):
-    shutil.rmtree(tmp)
-  os.makedirs(tmp)
+  writer = not dist.is_initialized() or dist.get_rank() == 0
+  if writer:
+    os.makedirs(directory, exist_ok=True)
+    if os.path.exists(tmp):
+      shutil.rmtree(tmp)
+    os.makedirs(tmp)
   manifest = {"step": step, "arrays": {}, "time": time.time()}
   for key, leaf in tree_flatten_with_path(state):
     arr = _to_numpy(key, leaf)
+    if not writer:
+      continue
     fname = hashlib.sha1(key.encode()).hexdigest()[:16] + ".npy"
     np.save(os.path.join(tmp, fname), arr)
     manifest["arrays"][key] = {
         "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
-  with open(os.path.join(tmp, "manifest.json"), "w") as f:
-    json.dump(manifest, f)
-  if os.path.exists(final):
-    shutil.rmtree(final)
-  os.rename(tmp, final)  # the atomic commit
+  if writer:
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+      json.dump(manifest, f)
+    if os.path.exists(final):
+      shutil.rmtree(final)
+    os.rename(tmp, final)  # the atomic commit
+  if dist.is_initialized():
+    dist.barrier()
   return final
 
 
@@ -86,22 +103,33 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, step: int, like: PyTree,
-                       device="cuda") -> PyTree:
+                       device="cuda", shardings: Optional[PyTree] = None
+                       ) -> PyTree:
   """Restore into the structure of ``like``, each leaf as a tensor on
   ``device``: one device for every leaf, or a tree of devices shaped like
-  ``like``."""
+  ``like``.  Given ``shardings`` (a tree of
+  :class:`repro_torch.models.common.Sharding` shaped like ``like``, as
+  ``param_shardings`` or ``launch.specs.named`` make), each leaf becomes a
+  DTensor placed so on its mesh instead, on the mesh's device: every rank
+  reads the file and keeps its own shard (the reference's elastic
+  re-mesh)."""
   path = os.path.join(directory, f"step_{step:08d}")
   with open(os.path.join(path, "manifest.json")) as f:
     manifest = json.load(f)
   keyed = tree_flatten_with_path(like)
-  if isinstance(device, (dict, list, tuple)):
-    devices = [resolve_device(d) for _, d in tree_flatten_with_path(device)]
+  if shardings is not None:
+    placers = [sh.place for _, sh in tree_flatten_with_path(shardings)]
   else:
-    devices = [resolve_device(device)] * len(keyed)
+    if isinstance(device, (dict, list, tuple)):
+      devices = [resolve_device(d)
+                 for _, d in tree_flatten_with_path(device)]
+    else:
+      devices = [resolve_device(device)] * len(keyed)
+    placers = [lambda t, dev=dev: t.to(dev) for dev in devices]
   out = []
-  for (key, _), dev in zip(keyed, devices):
+  for (key, _), place in zip(keyed, placers):
     arr = np.load(os.path.join(path, manifest["arrays"][key]["file"]))
-    out.append(torch.from_numpy(arr).to(dev))
+    out.append(place(torch.from_numpy(arr)))
   return tree_unflatten(tree_flatten(like)[1], out)
 
 
@@ -133,9 +161,10 @@ class CheckpointManager:
       shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                     ignore_errors=True)
 
-  def restore_latest(self, like: PyTree, device="cuda"
+  def restore_latest(self, like: PyTree, device="cuda", shardings=None
                      ) -> Tuple[Optional[int], PyTree]:
     step = latest_step(self.directory)
     if step is None:
       return None, like
-    return step, restore_checkpoint(self.directory, step, like, device)
+    return step, restore_checkpoint(self.directory, step, like, device,
+                                    shardings)

@@ -10,6 +10,11 @@ and moments into the tensors it is given.  That is the port's form of the
 reference launcher's ``donate_argnums=(0, 1)``: at Granite-3-2B's full
 size an out-of-place step would hold two copies of the 37.7 GiB of
 parameters, gradients and moments.
+
+On DTensor leaves the update runs leaf by leaf on each rank's shards (each
+moment placed as its parameter, ``launch.specs.opt_state_pspecs``), and
+the global norm's square sums the leaves' partial sums: DTensor reduces
+them once, where the square root needs the total.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch._tree import tree_leaves, tree_map
+from repro_torch.models.common import sharded_context
 
 PyTree = Any
 Tensor = torch.Tensor
@@ -58,6 +64,13 @@ def adamw_update(grads: PyTree, state: AdamWState, params: PyTree, *,
   """Returns (params, new_state, global_grad_norm).  ``params`` and the
   moments of ``state`` are updated in place (and returned); ``grads`` are
   left as they were."""
+  with sharded_context(params):
+    return _adamw_update(grads, state, params, lr=lr, b1=b1, b2=b2, eps=eps,
+                         weight_decay=weight_decay, grad_clip=grad_clip)
+
+
+def _adamw_update(grads, state, params, *, lr, b1, b2, eps, weight_decay,
+                  grad_clip):
   flat_g = tree_leaves(grads)
   sq = sum(torch.sum(torch.square(g.float())) for g in flat_g)
   gnorm = torch.sqrt(sq)

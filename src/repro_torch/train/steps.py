@@ -3,7 +3,9 @@
 The port of :mod:`repro.train.steps`.  Gradients come from
 ``torch.autograd.grad`` over the parameter leaves; the update runs in place
 (:func:`repro_torch.train.optimizer.adamw_update`), so a train step writes
-the parameters and optimizer state it is given.  Labels use -1 as the
+the parameters and optimizer state it is given.  The parameters, state and
+batch may be DTensors (placed by :mod:`repro_torch.launch.specs`): the
+step then runs sharded, and each gradient is a DTensor.  Labels use -1 as the
 ignore index (vision positions in VLM batches, padding).
 """
 
@@ -15,6 +17,8 @@ import torch
 
 from repro_torch._tree import (tree_flatten, tree_leaves, tree_map,
                                tree_unflatten)
+from repro_torch.models.common import sharded_context
+from repro_torch.models.sharding import is_split, vocab_sharded_nll
 from repro_torch.models.transformer import Model
 from repro_torch.train.optimizer import AdamWState, adamw_update, cosine_lr
 
@@ -29,17 +33,24 @@ def cross_entropy(logits: Tensor, labels: Tensor) -> Tuple[Tensor, Tensor]:
   Returns (loss, the count of non-ignored positions as float32).
 
   The reference takes the gold logit with a masked sum over [B,S,V], so
-  that a vocab-sharded axis stays sharded.  On one card ``gather`` gives
+  that a vocab-sharded axis stays sharded.  Unsharded, ``gather`` gives
   the same number (the sum has one non-zero term, and adding zeros is
   exact in float32) without a [B,S,V] bool mask and a second float32 copy
-  of the logits: 0.4 and 1.6 GB at Granite-3-2B's [4, 2048, 49408].
+  of the logits: 0.4 and 1.6 GB at Granite-3-2B's [4, 2048, 49408].  On
+  logits that are a DTensor sharded on V, the log-sum-exp and the gold
+  logit are reduced over the vocab axes per shard
+  (:func:`repro_torch.models.sharding.vocab_sharded_nll`): only a [B,S]
+  field crosses ranks, and the full logits are never gathered.
   """
   valid = labels != IGNORE
   lab = torch.where(valid, labels, 0).long()
   logits32 = logits.float()
-  lse = torch.logsumexp(logits32, dim=-1)
-  gold = torch.gather(logits32, -1, lab[..., None])[..., 0]
-  nll = (lse - gold) * valid.float()
+  if is_split(logits32, 2):
+    nll = vocab_sharded_nll(logits32, lab, valid.float())
+  else:
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, lab[..., None])[..., 0]
+    nll = (lse - gold) * valid.float()
   denom = torch.clamp(valid.sum(), min=1)
   return torch.sum(nll) / denom, denom.float()
 
@@ -63,7 +74,9 @@ def value_and_grad(loss_fn):
     # Leaves that share the parameters' storage, so that autograd sees
     # them as inputs without touching the caller's tensors.
     live = [p.detach().requires_grad_() for p in leaves]
-    with torch.enable_grad():
+    # On DTensors the backward pass, too, meets plain tensors the forward
+    # pass saved (positions, masks): it runs under implicit replication.
+    with torch.enable_grad(), sharded_context(params):
       total, aux = loss_fn(tree_unflatten(treedef, live), batch)
       grads = torch.autograd.grad(total, live, allow_unused=True,
                                   materialize_grads=True)
@@ -94,8 +107,8 @@ def make_train_step(model: Model, *, peak_lr: float = 3e-4,
         raise ValueError(f"batch {b} is not a multiple of microbatches "
                          f"{microbatches}")
       n = b // microbatches
-      grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+      grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params)
       l_sum = a_sum = 0.0
       for i in range(microbatches):
         micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}

@@ -46,6 +46,9 @@ def test_port_imports_with_jax_blocked():
       "import repro_torch.models.moe\n"
       "import repro_torch.train, repro_torch.train.checkpoint\n"
       "import repro_torch.launch, repro_torch.launch.train\n"
+      "import repro_torch.launch.mesh, repro_torch.launch.specs\n"
+      "import repro_torch.launch.dryrun, repro_torch.analysis\n"
+      "import repro_torch.models.sharding\n"
       "from repro_torch.models.transformer import build_model\n"
       "for name in repro_torch.configs.ARCHITECTURES:\n"
       "  build_model(repro_torch.configs.get_config(name)).defs()\n"
