@@ -136,6 +136,23 @@ Phases, in order; any failure exits non-zero before the result line:
    decode_32k in the "seq" layout on 16×16, × train_4k on 2×16×16, the
    skip of long_500k), traced in a child process on fake process groups
    beside phases 12 and 13 (its failure fails the run);
+14. the five torch examples (``examples/*_torch.py``), imported with
+   ``examples/`` on ``sys.path``, their section functions called on the
+   card: the suite's road grid (``grid_road_graph``, 1,024 × 1,024: n =
+   1,048,576, 4,190,208 edges) through its COO SSSP section, then through
+   ``build_ell`` and ``Planner.plan`` with no forced plan (it must pick
+   ``cuda_ell`` and launch the kernel) for BFS, SSSP and PageRank (20
+   sweeps), each against ``Plan("ell")``, ``Planner.autotune`` for BFS and
+   PageRank at Q = 1, and the kernel's road-grid rows of the kernels line;
+   at RMAT-18 (cut from 20: each example builds its own graph on the host)
+   the quickstart's SSSP declared (``process_op``: ``cuda_ell``) and as the
+   reference's lambda (``ell``), the suite's PageRank and BFS against
+   ``algos/native``, the multi-query service's four sections (the
+   fair-share split also at the example's RMAT-10, held to the
+   reference's), the 4×2 distributed PageRank in eight gloo ranks sharing
+   the card against one device; the suite's TC and CF at its own sizes;
+   ``serve_lm``'s model sampled and greedy, then Mixtral-8x7B at published
+   widths (2 of 32 layers) greedy;
 
 then the ``{"kernels": [...]}`` line, the card line and last ``{"ok": true,
 "device": {...}}``.  Detail that is too long for the end of the output goes
@@ -179,7 +196,14 @@ sharded logits, loss and gradients equal the unsharded ones bit for bit
 kernels run on the same tensors); the dry run's FLOPs and argument bytes
 equal the card's exactly; the dry-run cells within the reference test's
 own bounds (devices 256 and 512, decode FLOPs > 0 and collective bytes
-< 1e9, train FLOPs > 1e13, long_500k skipped).
+< 1e9, train FLOPs > 1e13, long_500k skipped).  Phase 14: the road grid's
+BFS and SSSP through the kernel equal ``Plan("ell")``'s bitwise (and the
+suite's COO SSSP), its PageRank within ``EXAMPLE_PR_RTOL``; the
+quickstart's two forms bitwise; the suite's PageRank at rtol 1e-4 and BFS
+bitwise against the native baselines, TC and CF (RMSE nan, diverged at
+the example's step size) as the reference; the 2-D PageRank within
+``DIST_PR_RTOL`` of one device; ``serve_lm``'s first greedy token is the
+argmax of ``make_prefill``'s last logits at ``NO_DROP_CAPACITY``.
 """
 
 from __future__ import annotations
@@ -725,14 +749,17 @@ def phase_slice(scale: int, num_queries: int, ell_mod):
   return stats, g, recorded, edges
 
 
-def record_calls(fn) -> list:
+def record_calls(fn, every: int = 1) -> list:
   """Run ``fn`` with the ``cuda_ell`` backend's kernel calls recorded:
-  ``(msg, active, keyword arguments)`` of each, copied before its launch."""
+  ``(msg, active, keyword arguments)`` of every ``every``-th call from the
+  first, copied before its launch."""
   from repro_torch.kernels import ops as kops
-  calls, launch = [], kops.ell_spmv
+  calls, launch, seen = [], kops.ell_spmv, [0]
 
   def recording(cols, vals, mask, msg, active, **kw):
-    calls.append((msg.clone(), active.clone(), kw))
+    if seen[0] % every == 0:
+      calls.append((msg.clone(), active.clone(), kw))
+    seen[0] += 1
     return launch(cols, vals, mask, msg, active, **kw)
 
   kops.ell_spmv = recording
@@ -748,6 +775,118 @@ def record_calls(fn) -> list:
 # ---------------------------------------------------------------------------
 
 
+def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
+             op: str, red: str, dtype, q: int, kd, replaces: str, calls,
+             launches: dict):
+  """One row of the kernels line: the ELL kernel on graph ``g`` held
+  against its plain version on ``calls`` (``(msg, active)`` pairs; None:
+  one call of random messages with every source active, as each PageRank
+  and gradient sweep runs), timed with CUDA events beside the plain version
+  (and ``torch.sparse.mm`` for PageRank's form), with its byte bound.
+  ``csr`` memoizes the graph's CSR matrix for ``torch.sparse.mm``.
+  Returns the row and the all-slots bound."""
+  import torch
+  n, n_pad, width = g.n, g.n_pad, g.width
+  active = torch.ones((n,), dtype=torch.bool, device="cuda")
+  ext = {"row_end": g.row_end, "mask_prefix": g.mask_prefix,
+         "segments": ell_mod.row_segments(g.row_end)}
+  valid_slots = int(g.mask.sum())
+  random_calls = calls is None
+  if random_calls:
+    if dtype == torch.int32:
+      msg = torch.randint(0, 64, (n, q), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    else:
+      msg = torch.rand((n, q), generator=gen, device="cuda")
+    calls = [(msg, active)]
+  dprop = (None if kd is None
+           else torch.rand((n_pad, kd), generator=gen, device="cuda"))
+  dp = (torch.zeros((n_pad, 1), dtype=dtype, device="cuda")
+        if dprop is None else dprop)
+
+  def kernel(m, a):
+    return ell_mod.ell_spmv(g.cols, g.vals, g.mask, m, a, process_op=op,
+                            reduce_kind=red, dprop=dprop, **ext)
+
+  def plain(m, a):
+    return ref_mod.ell_spmv_ref(g.cols, g.vals, g.mask, m, a, dp,
+                                process=ell_mod.plain_process(op),
+                                reduce_kind=red)
+
+  def run_all(fn):
+    def run():
+      for m, a in calls:
+        fn(m, a)
+    return run
+
+  err = 0.0
+  for m, a in calls:
+    y, r = kernel(m, a)
+    yr, rr = plain(m, a)
+    err = max(err, compare(y, yr, r, rr, red, name))
+  del yr, rr
+  plain_ms = cuda_ms(run_all(plain), iters=3 if random_calls else 1,
+                     warmup=0) / len(calls)
+  size = calls[0][0].element_size()
+  edge = op in ell_mod.EDGE_OPS
+  # Bytes the work needs, whatever implements it, a launch on average:
+  # cols (and vals for the edge forms) of the valid slots, one row extent
+  # per packed row, the active sources' messages, active and dprop once,
+  # y and recv once.
+  active_msgs = sum(int(a.sum()) for _, a in calls) / len(calls)
+  need = (valid_slots * (4 + (4 if edge else 0)) + 4 * n_pad
+          + active_msgs * q * size + n
+          + (0 if kd is None else n_pad * kd * size)
+          + n_pad * q * size + n_pad)
+  # Every ELL slot's mask, cols (and vals) byte and every message: the
+  # all-slots count, kept for the record.
+  full = (n_pad * width * (9 if edge else 5) + n * q * size + n
+          + n_pad * q * size + n_pad)
+  library_ms = None
+  if op == "msg":
+    # torch.sparse.mm on the same matrix as CSR: plus_times over the
+    # 0/1 pattern (PageRank's process passes the message through).
+    if "csr" not in csr:
+      # The packed ELL matrix as CSR, columns sorted within each row.
+      rows, slots = g.mask.nonzero(as_tuple=True)
+      src_ids = g.cols[rows, slots].long()
+      order = torch.argsort(rows * n + src_ids)
+      rows, slots, src_ids = rows[order], slots[order], src_ids[order]
+      crow = torch.zeros(n_pad + 1, dtype=torch.int64, device="cuda")
+      crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n_pad), 0)
+      ones = torch.ones(src_ids.shape, dtype=torch.float32, device="cuda")
+      csr["csr"] = torch.sparse_csr_tensor(crow, src_ids, ones,
+                                           size=(n_pad, n))
+      del rows, slots, src_ids, order
+    m, a = calls[0]
+    x = torch.where(a[:, None], m, 0.0)
+    y_lib = torch.sparse.mm(csr["csr"], x)
+    torch.testing.assert_close(y_lib, y, rtol=1e-4, atol=1e-4 * float(
+        y.abs().max()))
+    # Timed in turns with the kernel, so that both see the same card.
+    kernel_ms, library_ms = paired_ms(run_all(kernel),
+                                      lambda: torch.sparse.mm(csr["csr"], x))
+  else:
+    kernel_ms = cuda_ms(run_all(kernel), iters=max(1, 20 // len(calls)),
+                        repeats=5) / len(calls)
+  del y, r
+  entry = {
+      "name": name, "route": "cuda",
+      "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
+      "replaces": replaces,
+      "launches": int(launches.get(ell_mod.config_key(q, dtype, red, op), 0)),
+      "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+      "bound_ms": need / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+      "library_ms": library_ms}
+  array_bound = full / H100_BYTES_PER_S * 1e3
+  log(f"{phase}: {name}: kernel {kernel_ms:.4f} ms a launch over "
+      f"{len(calls)} call(s), plain {plain_ms:.3f} ms, bound "
+      f"{entry['bound_ms']:.4f} ms, ELL-array bound {array_bound:.4f} ms, "
+      f"library {library_ms}")
+  torch.cuda.empty_cache()
+  return entry, array_bound
+
+
 def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
   import torch
   from repro_torch.core.spmv import merge_spill
@@ -755,11 +894,10 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
   from repro_torch.algos.multi import multi_bfs_program
 
   gen = torch.Generator(device="cuda").manual_seed(7)
-  n, n_pad, width = g.n, g.n_pad, g.width
+  n = g.n
   active = torch.ones((n,), dtype=torch.bool, device="cuda")
   ext = {"row_end": g.row_end, "mask_prefix": g.mask_prefix,
          "segments": ell_mod.row_segments(g.row_end)}
-  valid_slots = int(g.mask.sum())
   entries = []
   array_bounds = {}  # bytes of every ELL slot / HBM rate, for the record
   # name, op, reduce, dtype, Q, Kd (None: no dprop), replaces, and the
@@ -779,106 +917,21 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
       ("ell_spmv[gradient,f32,add,Q=8,dprop]", DST_OP, "add", torch.float32,
        8, 8, "src/repro/kernels/ell_spmv.py:165", None),
   ]
-  csr = None
+  csr = {}
   for name, op, red, dtype, q, kd, replaces, key in configs:
-    if key is None:
-      if dtype == torch.int32:
-        msg = torch.randint(0, 64, (n, q), generator=gen, device="cuda",
-                            dtype=torch.int32)
-      else:
-        msg = torch.rand((n, q), generator=gen, device="cuda")
-      calls = [(msg, active)]
-    else:
+    calls = None
+    if key is not None:
       calls = [(m, a) for m, a, kw in recorded[key]]
       if not calls or any(
           (kw["process_op"], kw["reduce_kind"]) != (op, red)
           or m.shape[1] != q or m.dtype != dtype
           for m, _, kw in recorded[key]):
         raise AssertionError(f"{name}: the recorded calls are not its own")
-    dprop = (None if kd is None
-             else torch.rand((n_pad, kd), generator=gen, device="cuda"))
-    dp = (torch.zeros((n_pad, 1), dtype=dtype, device="cuda")
-          if dprop is None else dprop)
-
-    def kernel(m, a):
-      return ell_mod.ell_spmv(g.cols, g.vals, g.mask, m, a, process_op=op,
-                              reduce_kind=red, dprop=dprop, **ext)
-
-    def plain(m, a):
-      return ref_mod.ell_spmv_ref(g.cols, g.vals, g.mask, m, a, dp,
-                                  process=ell_mod.plain_process(op),
-                                  reduce_kind=red)
-
-    def run_all(fn):
-      def run():
-        for m, a in calls:
-          fn(m, a)
-      return run
-
-    err = 0.0
-    for m, a in calls:
-      y, r = kernel(m, a)
-      yr, rr = plain(m, a)
-      err = max(err, compare(y, yr, r, rr, red, name))
-    del yr, rr
-    plain_ms = cuda_ms(run_all(plain), iters=1 if key else 3,
-                       warmup=0) / len(calls)
-    size = calls[0][0].element_size()
-    edge = op in ell_mod.EDGE_OPS
-    # Bytes the work needs, whatever implements it, a launch on average:
-    # cols (and vals for the edge forms) of the valid slots, one row extent
-    # per packed row, the active sources' messages, active and dprop once,
-    # y and recv once.
-    active_msgs = sum(int(a.sum()) for _, a in calls) / len(calls)
-    need = (valid_slots * (4 + (4 if edge else 0)) + 4 * n_pad
-            + active_msgs * q * size + n
-            + (0 if kd is None else n_pad * kd * size)
-            + n_pad * q * size + n_pad)
-    # Every ELL slot's mask, cols (and vals) byte and every message: the
-    # all-slots count, kept for the record.
-    full = (n_pad * width * (9 if edge else 5) + n * q * size + n
-            + n_pad * q * size + n_pad)
-    library_ms = None
-    if op == "msg":
-      # torch.sparse.mm on the same matrix as CSR: plus_times over the
-      # 0/1 pattern (PageRank's process passes the message through).
-      if csr is None:
-        # The packed ELL matrix as CSR, columns sorted within each row.
-        rows, slots = g.mask.nonzero(as_tuple=True)
-        src_ids = g.cols[rows, slots].long()
-        order = torch.argsort(rows * n + src_ids)
-        rows, slots, src_ids = rows[order], slots[order], src_ids[order]
-        crow = torch.zeros(n_pad + 1, dtype=torch.int64, device="cuda")
-        crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n_pad), 0)
-        ones = torch.ones(src_ids.shape, dtype=torch.float32, device="cuda")
-        csr = torch.sparse_csr_tensor(crow, src_ids, ones, size=(n_pad, n))
-        del rows, slots, src_ids, order
-      x = torch.where(active[:, None], msg, 0.0)
-      y_lib = torch.sparse.mm(csr, x)
-      torch.testing.assert_close(y_lib, y, rtol=1e-4, atol=1e-4 * float(
-          y.abs().max()))
-      # Timed in turns with the kernel, so that both see the same card.
-      kernel_ms, library_ms = paired_ms(run_all(kernel),
-                                        lambda: torch.sparse.mm(csr, x))
-    else:
-      kernel_ms = cuda_ms(run_all(kernel), iters=max(1, 20 // len(calls)),
-                          repeats=5) / len(calls)
-    del y, r
-    entries.append({
-        "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
-        "replaces": replaces,
-        "launches": int(launches.get(ell_mod.config_key(q, dtype, red, op),
-                                     0)),
-        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": need / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": library_ms})
-    array_bounds[name] = full / H100_BYTES_PER_S * 1e3
-    log(f"phase 4: {name}: kernel {kernel_ms:.4f} ms a launch over "
-        f"{len(calls)} call(s), plain {plain_ms:.3f} ms, bound "
-        f"{entries[-1]['bound_ms']:.4f} ms, ELL-array bound "
-        f"{array_bounds[name]:.4f} ms, library {library_ms}")
-    torch.cuda.empty_cache()
+    entry, array_bounds[name] = time_ell(
+        "phase 4", g, ell_mod, ref_mod, gen, csr, name, op, red, dtype, q,
+        kd, replaces, calls, launches)
+    entries.append(entry)
+  del csr
 
   # The kernel's time by frontier: all sources active (no slot reads an
   # active flag), 10% active (a message is read only for an active source)
@@ -3246,6 +3299,443 @@ def _sharded_scan(mesh, ss_mod, ell_mod, seed: int) -> dict:
           "scan_launches": launches, "ell_launches": ell}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the examples on the card
+# ---------------------------------------------------------------------------
+
+# The RMAT sections run at scale 18, cut from the card's usual 20: each
+# example builds its own graph on the host, and three more RMAT-20 builds
+# would add about 70 s of host numpy to phases 3-5's.
+EXAMPLE_SCALE = 18
+ROAD_PR_ITERS = 20
+# A road BFS or SSSP runs some 2,000 supersteps; every 16th kernel call is
+# recorded and timed.
+ROAD_RECORD_EVERY = 16
+# The reference's fair-share split under saturation, at the example's own
+# size (RMAT-10; tests/test_torch_examples_service.py holds the CPU to it).
+EXAMPLE_FAIR_SPLIT = {"gold": 15, "free": 5}
+EXAMPLE_PR_RTOL = 1e-5   # the road grid's PageRank: kernel vs Plan("ell")
+DIST_PR_RTOL = 1e-4      # the 2-D delta-PageRank vs one device
+SERVE_LM_CUT = ("mixtral_8x7b", 2)
+# serve_lm's first greedy token is held to a prefill at this capacity
+# factor, under which its 4 × 8 prompt tokens drop no (token, expert) edge.
+NO_DROP_CAPACITY = 16.0
+
+
+def load_example(name: str):
+  """``examples/<name>.py`` as the module ``name``, with ``examples/`` on
+  ``sys.path``: the distributed example's spawned ranks import it by that
+  name."""
+  import importlib
+  path = str(ROOT / "examples")
+  if path not in sys.path:
+    sys.path.insert(0, path)
+  return importlib.import_module(name)
+
+
+def timed(fn):
+  """``(fn(), seconds)`` on the host clock, ending in a device sync."""
+  import torch
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  return out, time.perf_counter() - t0
+
+
+def examples_road(side: int, ell_mod, ref_mod):
+  """The suite's road grid at ``side`` × ``side``: its SSSP section through
+  ``build_coo``, then BFS, SSSP and PageRank through ``build_ell`` and
+  ``Planner.plan`` (no forced plan), each against ``Plan("ell")``;
+  ``Planner.autotune``; the kernel's rows for the kernels line."""
+  import dataclasses
+  import numpy as np
+  import torch
+  from repro_torch.algos import pagerank
+  from repro_torch.algos.bfs import UNREACHED, bfs_program
+  from repro_torch.algos.multi import bfs_column, sssp_column
+  from repro_torch.algos.pagerank import init_prop, pagerank_program
+  from repro_torch.algos.sssp import sssp_program
+  from repro_torch.core import Plan, Planner, build_ell, run_graph_program
+
+  suite = load_example("graph_analytics_suite_torch")
+  dev = torch.device("cuda")
+  (n, src, dst, w), gen_s = timed(lambda: suite.grid_road_graph(side))
+  out = {"side": side, "n": n, "edges": len(src), "generate_s": gen_s}
+  log(f"phase 14: road grid {side}x{side}: n = {n:,}, {len(src):,} edges, "
+      f"generated in {gen_s:.2f} s")
+
+  ell_mod.launches.reset()
+  (coo_dist, mean), coo_s = timed(lambda: suite.road_sssp_section(side,
+                                                                  "cuda"))
+  out["suite_sssp_coo"] = {"mean": mean, "seconds": coo_s,
+                           "ell_launches": ell_mod.launches.total}
+  log(f"phase 14: the suite's road SSSP (build_coo): mean shortest distance "
+      f"{mean:.2f} in {coo_s:.3f} s (graph build included)")
+
+  g, build_s = timed(lambda: build_ell(src, dst, w, n=n, device="cuda"))
+  planner = Planner()
+  stats = dataclasses.asdict(planner.stats(g))
+  out.update(build_ell_s=build_s, stats=stats)
+  log(f"phase 14: road grid ELL built in {build_s:.2f} s; Planner.stats "
+      + json.dumps(stats))
+  out_deg = torch.from_numpy(np.bincount(src, minlength=n).astype(
+      np.float32)).to(dev)
+  every = torch.ones((n,), dtype=torch.bool, device=dev)
+
+  def run_bfs(plan):
+    st = run_graph_program(g, bfs_program(), *bfs_column(0, n, dev),
+                           backend=plan)
+    return st.prop, int(st.iteration)
+
+  def run_sssp(plan):
+    st = run_graph_program(g, sssp_program(), *sssp_column(0, n, dev),
+                           backend=plan)
+    return st.prop, int(st.iteration)
+
+  def run_pagerank(plan):
+    return (pagerank(g, out_deg, num_iters=ROAD_PR_ITERS, backend=plan),
+            ROAD_PR_ITERS)
+
+  runs = {"bfs": (bfs_program(), run_bfs), "sssp": (sssp_program(), run_sssp),
+          "pagerank": (pagerank_program(), run_pagerank)}
+  plain = Plan("ell")
+  got, launches = {}, {}
+  for algo, (prog, run) in runs.items():
+    plan = planner.plan(g, prog)
+    if plan.backend != "cuda_ell":
+      raise AssertionError(f"phase 14: Planner.plan put the road grid's "
+                           f"{algo} on {plan_name(plan)}, not cuda_ell")
+    run(plan)  # warm-up: the kernel's row segments, the allocator
+    ell_mod.launches.reset()
+    (res, steps), sec = timed(lambda: run(plan))
+    launches[algo] = dict(ell_mod.launches.by_config)
+    if ell_mod.launches.total == 0:
+      raise AssertionError(f"phase 14: the road grid's {algo} through "
+                           f"{plan_name(plan)} launched no kernel")
+    total = ell_mod.launches.total
+    run(plain)
+    (want, steps_p), sec_p = timed(lambda: run(plain))
+    if algo == "pagerank":
+      torch.testing.assert_close(res, want, rtol=EXAMPLE_PR_RTOL, atol=0.0)
+      err = float((res.double() - want.double()).abs().max())
+    elif not torch.equal(res, want) or steps != steps_p:
+      raise AssertionError(f"phase 14: the road grid's {algo}: cuda_ell != "
+                           "Plan('ell')")
+    else:
+      err = 0.0
+    got[algo] = res
+    out[algo] = {"plan": plan_name(plan), "launches": total,
+                 "supersteps": steps, "seconds": sec,
+                 "ms_per_superstep": sec / steps * 1e3,
+                 "plain_seconds": sec_p,
+                 "plain_ms_per_superstep": sec_p / steps_p * 1e3,
+                 "max_abs_err": err}
+    log(f"phase 14: road {algo}: Planner.plan picks {plan_name(plan)}; "
+        f"{steps} supersteps, {total} kernel launches, {sec:.3f} s "
+        f"({sec / steps * 1e3:.4f} ms a superstep); Plan('ell') "
+        f"{sec_p:.3f} s ({sec_p / steps_p * 1e3:.4f} ms a superstep); "
+        + ("max abs err " + f"{err:.3g} at rtol {EXAMPLE_PR_RTOL}"
+           if algo == "pagerank" else "equal bitwise"))
+  hops = got["bfs"]
+  if bool((hops == UNREACHED).any()) or int(hops.max()) != 2 * (side - 1):
+    raise AssertionError("phase 14: the road BFS missed a vertex or the "
+                         "grid's diameter")
+  if not torch.equal(got["sssp"], coo_dist):
+    raise AssertionError("phase 14: the suite's COO SSSP != the ELL SSSP")
+  log("phase 14: road BFS reaches every vertex at the grid's diameter "
+      f"{2 * (side - 1)}; the suite's COO SSSP == the ELL SSSP bitwise")
+  del coo_dist, got
+
+  # Measured planning, as ROADMAP Queue 2 K2 asks: every candidate's time.
+  tuned = {}
+  for name, prog, prop, active in (
+      ("bfs,Q=1", bfs_program(), *bfs_column(0, n, dev)),
+      ("pagerank,Q=1", pagerank_program(), init_prop(out_deg), every)):
+    best, seconds = timed(lambda: planner.autotune(g, prog, prop, active,
+                                                   num_iters=2, repeats=3))
+    (measured,) = [v for k, v in planner.timings.items()
+                   if k[1:] == (prog.name, 1)]
+    table = {plan_name(p): (None if t is None else t * 1e3)
+             for p, t in measured}
+    tuned[name] = {"ms_per_2_supersteps": table, "winner": plan_name(best),
+                   "heuristic": plan_name(planner.plan(g, prog)),
+                   "seconds": seconds}
+    log(f"phase 14: road autotune {name} (2 supersteps, median of 3, ms): "
+        + ", ".join(f"{k} {'skipped' if v is None else f'{v:.3f}'}"
+                    for k, v in table.items())
+        + f"; winner {plan_name(best)}; Planner.plan picks "
+        f"{tuned[name]['heuristic']}")
+  out["autotune"] = tuned
+
+  # The kernel's rows: timed on every ROAD_RECORD_EVERY-th call of the
+  # road BFS and SSSP, and on one all-active PageRank sweep.
+  kernel = Plan("cuda_ell")
+  recorded = {
+      "bfs": record_calls(lambda: run_bfs(kernel), every=ROAD_RECORD_EVERY),
+      "sssp": record_calls(lambda: run_sssp(kernel),
+                           every=ROAD_RECORD_EVERY)}
+  gen = torch.Generator(device="cuda").manual_seed(14)
+  entries, csr = [], {}
+  for algo, op, red, dtype in (
+      ("bfs", "msg_plus_one", "min", torch.int32),
+      ("sssp", "msg_plus_edge", "min", torch.float32),
+      ("pagerank", "msg", "add", torch.float32)):
+    calls = ([(m, a) for m, a, _ in recorded[algo]] if algo in recorded
+             else None)
+    tname = "int32" if dtype == torch.int32 else "f32"
+    entry, _ = time_ell(
+        "phase 14", g, ell_mod, ref_mod, gen, csr,
+        f"ell_spmv[road-grid,{algo},{tname},{red},Q=1]", op, red, dtype, 1,
+        None, "src/repro/kernels/ell_spmv.py:192", calls, launches[algo])
+    entries.append(entry)
+  del recorded, csr, g
+  torch.cuda.empty_cache()
+  out["kernel_rows"] = [e["name"] for e in entries]
+  return out, entries
+
+
+def examples_rmat(scale: int, ell_mod) -> dict:
+  """The quickstart, the suite's PageRank and BFS, the multi-query service
+  and the distributed PageRank at RMAT ``scale``; TC and CF at the suite's
+  own sizes."""
+  import numpy as np
+  import torch
+  from repro_torch.algos import pagerank
+  from repro_torch.algos.native import native_bfs, native_pagerank
+  from repro_torch.algos.pagerank import delta_pagerank_program
+  from repro_torch.core import AUTO_PLAN, build_coo, run_graph_program
+  from repro_torch.core.backends import base
+  from repro_torch.graphs import (dedupe_edges, remove_self_loops,
+                                  rmat_edges, shuffle_vertices, symmetrize)
+
+  out = {"scale": scale}
+  # The quickstart, declared (process_op) and as the reference's lambda.
+  qs = load_example("quickstart_torch")
+  (g, n), build_s = timed(lambda: qs.build_graph(scale, "cuda"))
+  forms = {}
+  msg = torch.zeros((n,), dtype=torch.float32, device="cuda")
+  for form, declared in (("process_op", True), ("lambda", False)):
+    backend = base.resolve(AUTO_PLAN, g, msg, msg, qs.sssp_program(declared))
+    qs.run_sssp(g, n, 6, declared)
+    ell_mod.launches.reset()
+    res, sec = timed(lambda: qs.run_sssp(g, n, 6, declared))
+    forms[form] = dict(res, plan=backend.name, seconds=sec,
+                       launches=ell_mod.launches.total)
+  a, b = forms["process_op"], forms["lambda"]
+  if not (torch.equal(a["dist"], b["dist"])
+          and a["supersteps"] == b["supersteps"]):
+    raise AssertionError("phase 14: the quickstart's two forms disagree")
+  if (a["plan"], b["plan"]) != ("cuda_ell", "ell") or not a["launches"] \
+      or b["launches"]:
+    raise AssertionError("phase 14: the quickstart's declared form did not "
+                         "run the kernel, or its lambda did: " + json.dumps(
+                             {k: (v["plan"], v["launches"])
+                              for k, v in forms.items()}))
+  out["quickstart"] = {k: {f: v[f] for f in ("plan", "seconds", "launches",
+                                             "supersteps", "reached")}
+                       for k, v in forms.items()}
+  out["quickstart"]["build_s"] = build_s
+  log(f"phase 14: quickstart SSSP on RMAT-{scale} from vertex 6: "
+      f"{a['supersteps']} supersteps, reached {a['reached']:,}/{n:,}; "
+      f"process_op -> {a['plan']} {a['seconds'] * 1e3:.2f} ms "
+      f"({a['launches']} launches), lambda -> {b['plan']} "
+      f"{b['seconds'] * 1e3:.2f} ms; distances equal bitwise")
+  del g, forms, a, b
+
+  # The suite's PageRank and BFS, held to the native baselines.
+  suite = load_example("graph_analytics_suite_torch")
+  ell_mod.launches.reset()
+  (ranks, top), pr_s = timed(lambda: suite.pagerank_section(scale, "cuda"))
+  pr_launches = ell_mod.launches.total
+  ell_mod.launches.reset()
+  (hops, ecc), bfs_s = timed(lambda: suite.bfs_section(scale, "cuda"))
+  bfs_launches = ell_mod.launches.total
+  src, dst, n = suite.rmat_graph(scale)
+  out_deg = torch.from_numpy(np.bincount(src, minlength=n).astype(np.float32))
+  torch.testing.assert_close(
+      ranks, native_pagerank(src, dst, out_deg, n, 20, device="cuda"),
+      rtol=1e-4, atol=0.0)
+  ss, dd = symmetrize(src, dst)
+  if not torch.equal(hops, native_bfs(ss, dd, n, 0, device="cuda")):
+    raise AssertionError("phase 14: the suite's BFS != native BFS")
+  if not (pr_launches and bfs_launches):
+    raise AssertionError("phase 14: the suite's PageRank or BFS launched no "
+                         "kernel")
+  out["suite"] = {"pagerank": {"top5": top, "seconds": pr_s,
+                               "launches": pr_launches},
+                  "bfs": {"eccentricity": ecc, "seconds": bfs_s,
+                          "launches": bfs_launches}}
+  log(f"phase 14: suite PageRank on RMAT-{scale}: top-5 {top}, {pr_s:.3f} s "
+      f"with the graph build, {pr_launches} launches, == native at rtol "
+      f"1e-4; BFS eccentricity from 0: {ecc}, {bfs_s:.3f} s, {bfs_launches} "
+      "launches, == native bitwise")
+  del ranks, hops
+
+  # TC and CF at the suite's own sizes (phase 5 runs them at full size).
+  tc, tc_s = timed(lambda: suite.triangle_section(10, "cuda"))
+  (_, rmse, base_rmse), cf_s = timed(
+      lambda: suite.collaborative_filtering_section(device="cuda"))
+  if tc != 2921 or not np.isnan(rmse):
+    raise AssertionError(f"phase 14: the suite's TC ({tc}) or CF (RMSE "
+                         f"{rmse}) is not the reference's (2921, nan)")
+  out["suite"].update(tc={"triangles": tc, "seconds": tc_s},
+                      cf={"rmse": rmse, "baseline": base_rmse,
+                          "seconds": cf_s})
+  log(f"phase 14: suite TC at RMAT-10: {tc} triangles ({tc_s:.3f} s); CF "
+      f"3000x500: RMSE {rmse} (the reference's nan; baseline "
+      f"{base_rmse:.3f}) in {cf_s:.3f} s")
+
+  # The multi-query service's four sections.
+  mqs = load_example("multi_query_service_torch")
+  graphs, build_s = timed(lambda: mqs.build_graphs(scale, "cuda"))
+  served = {"build_s": build_s}
+  for name, fn, queries in (("bfs", mqs.serve_bfs, 24),
+                            ("ppr", mqs.serve_ppr, 10),
+                            ("concurrent", mqs.serve_concurrent, 64),
+                            ("fair_share", mqs.serve_fair_share, 40)):
+    ell_mod.launches.reset()
+    res = fn(graphs)
+    rec = {"seconds": res["seconds"], "queries": queries,
+           "queries_per_s": queries / res["seconds"],
+           "ell_launches": ell_mod.launches.total}
+    if "plan" in res:
+      rec["plan"] = plan_name(res["plan"])
+    served[name] = rec
+    if name == "concurrent":
+      tally, lat = res["tally"], res["latency_ms"]
+      if sum(tally.values()) != queries:
+        raise AssertionError(f"phase 14: concurrent tally {tally}")
+      rec.update(tally=tally, latency_mean_ms=lat["mean"],
+                 latency_max_ms=lat["max"], high_water=res["high_water"])
+    if name == "fair_share":
+      rec["mid"] = res["mid"]
+    log(f"phase 14: service {name} on RMAT-{scale}: {queries} queries in "
+        f"{res['seconds']:.3f} s ({rec['queries_per_s']:.2f} queries/s), "
+        + json.dumps({k: v for k, v in rec.items()
+                      if k not in ("seconds", "queries", "queries_per_s")}))
+  fair = mqs.serve_fair_share(mqs.build_graphs(10, "cuda"))
+  if fair["mid"] != EXAMPLE_FAIR_SPLIT:
+    raise AssertionError(f"phase 14: fair share at RMAT-10 {fair['mid']}, "
+                         f"the reference's {EXAMPLE_FAIR_SPLIT}")
+  served["fair_share_rmat10"] = fair["mid"]
+  log(f"phase 14: fair share at the example's RMAT-10: {fair['mid']} == the "
+      "reference's split")
+  out["service"] = served
+  del graphs
+
+  # The distributed PageRank: 4x2 gloo ranks sharing the card, against one
+  # device on the same shuffled edges.
+  dpr = load_example("distributed_pagerank_torch")
+  res, dist_s = timed(lambda: dpr.pagerank_2d(scale, device="cuda"))
+  s, d = rmat_edges(scale, 8, seed=21)
+  s, d = remove_self_loops(s, d)
+  s, d = dedupe_edges(s, d)
+  s, d, _ = shuffle_vertices(s, d, 1 << scale, seed=3)
+  n = 1 << scale
+  deg = torch.from_numpy(np.bincount(s, minlength=n).astype(np.float32)).cuda()
+  full_r = torch.full((n,), dpr.R_DAMP, device="cuda")
+  st = run_graph_program(
+      build_coo(s, d, n=n, device="cuda"),
+      delta_pagerank_program(dpr.R_DAMP, dpr.TOL),
+      {"rank": full_r, "delta": full_r.clone(), "deg": deg},
+      torch.ones((n,), dtype=torch.bool, device="cuda"),
+      max_iters=dpr.MAX_ITERS)
+  one = st.prop["rank"].cpu()
+  torch.testing.assert_close(torch.from_numpy(res["ranks"]), one,
+                             rtol=DIST_PR_RTOL, atol=0.0)
+  if res["supersteps"] != int(st.iteration) or not res["every_rank_equal"]:
+    raise AssertionError("phase 14: the 2-D PageRank's supersteps or ranks "
+                         "differ from one device")
+  ms = res["seconds"] / res["supersteps"] * 1e3
+  out["distributed"] = {"grid": [4, 2], "backend": "gloo",
+                        "supersteps": res["supersteps"],
+                        "num_active": res["num_active"],
+                        "run_s": res["seconds"], "ms_per_superstep": ms,
+                        "launch_s": dist_s, "top5": res["top"],
+                        "max_rel_err": float(((torch.from_numpy(res["ranks"])
+                                               - one).abs() / one).max())}
+  log(f"phase 14: distributed PageRank on RMAT-{scale}, 4x2 gloo ranks on "
+      f"one card: {res['supersteps']} supersteps, {ms:.3f} ms a superstep "
+      f"(slowest rank, first run), launch {dist_s:.1f} s, top-5 "
+      f"{res['top']}; == one device at rtol {DIST_PR_RTOL}")
+  return out
+
+
+def examples_serve_lm() -> dict:
+  """The serve_lm example's model on the card, sampled then greedy; then
+  Mixtral-8x7B at published widths, ``SERVE_LM_CUT`` layers, greedy."""
+  import torch
+  from repro_torch import configs
+  from repro_torch.models.transformer import build_model
+  from repro_torch.serve import make_prefill
+
+  slm = load_example("serve_lm_torch")
+  out = {}
+  sampled = slm.serve(device="cuda")
+  toks, prompt = sampled["tokens"], sampled["prompt"]
+  if tuple(toks.shape) != (4, 32) or not torch.equal(toks[:, :8],
+                                                      prompt.cpu()):
+    raise AssertionError("phase 14: serve_lm's sampled tokens lost the "
+                         "prompt")
+  greedy = slm.serve(device="cuda", greedy=True, params=sampled["params"],
+                     prompt=prompt)
+  # A one-token decode group never drops a (token, expert) edge; the
+  # prefill is held at a capacity factor under which it drops none either.
+  cfg = sampled["model"].cfg
+  nodrop = build_model(cfg.scaled(capacity_factor=NO_DROP_CAPACITY))
+  logits = make_prefill(nodrop)(sampled["params"], {"tokens": prompt})
+  first = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1).cpu()
+  if not torch.equal(greedy["tokens"][:, 8].to(first.dtype), first):
+    raise AssertionError("phase 14: serve_lm's first greedy token is not "
+                         "the argmax of the prefill's last logits")
+  out["example"] = {"sampled_s": sampled["seconds"],
+                    "greedy_s": greedy["seconds"],
+                    "tokens_per_s": 4 * 24 / greedy["seconds"]}
+  log(f"phase 14: serve_lm's example model: 4 x 24 sampled tokens in "
+      f"{sampled['seconds']:.3f} s, greedy {greedy['seconds']:.3f} s; the "
+      "first greedy token == argmax of make_prefill's last logits (capacity "
+      f"factor {NO_DROP_CAPACITY:g})")
+  del sampled, greedy, logits
+
+  arch, layers = SERVE_LM_CUT
+  full = configs.get_config(arch)
+  cfg = full.scaled(num_layers=layers)
+  torch.cuda.reset_peak_memory_stats()
+  warm = slm.serve(cfg, device="cuda", greedy=True, max_new=2)
+  run = slm.serve(cfg, device="cuda", greedy=True, params=warm["params"],
+                  prompt=warm["prompt"])
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  n_params = sum(p.numel() for p in _leaves(warm["params"]))
+  toks = run["tokens"]
+  if tuple(toks.shape) != (4, 32) or not (
+      (toks >= 0) & (toks < cfg.vocab_size)).all():
+    raise AssertionError("phase 14: Mixtral's greedy tokens are malformed")
+  out["mixtral"] = {"config": cfg.name, "num_layers": layers,
+                    "params": n_params, "seconds": run["seconds"],
+                    "tokens_per_s": 4 * 24 / run["seconds"],
+                    "peak_gib": peak}
+  log(f"phase 14: {cfg.name} at published widths, {layers} of "
+      f"{full.num_layers} layers ({n_params:,} params): 4 x (8 + 24) greedy "
+      f"tokens in {run['seconds']:.3f} s ({4 * 24 / run['seconds']:.2f} new "
+      f"tokens/s), peak device memory {peak:.2f} GiB")
+  del warm, run
+  torch.cuda.empty_cache()
+  return out
+
+
+def phase_examples(scale: int, ell_mod, ref_mod):
+  """Phase 14: the five torch examples' sections on the card."""
+  t0 = time.perf_counter()
+  road, entries = examples_road(1 << (scale // 2), ell_mod, ref_mod)
+  rmat = examples_rmat(min(scale, EXAMPLE_SCALE), ell_mod)
+  lm = examples_serve_lm()
+  took = time.perf_counter() - t0
+  log(f"phase 14: took {took:.1f} s")
+  return {"road": road, "rmat": rmat, "serve_lm": lm, "seconds": took}, \
+      entries
+
+
 def main(argv=None) -> int:
   ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
   ap.add_argument("--scale", type=int, default=20,
@@ -3378,6 +3868,9 @@ def main(argv=None) -> int:
     log(f"phase 13: took {time.perf_counter() - t0:.1f} s")
   finally:
     stop_dryrun_child(child)
+  torch.cuda.empty_cache()
+  examples, road_entries = phase_examples(args.scale, ell_mod, ref_mod)
+  entries += road_entries
   b, s, _, _ = FALCON_SCAN
   entries.append({
       "name": f"selective_scan[falcon-mamba-7b,f32,B={b},S={s}]",
@@ -3396,7 +3889,7 @@ def main(argv=None) -> int:
       "ell_ms_by_frontier": by_frontier, "superstep_split": split,
       "suite": suite, "scan": scan, "lm": lm, "dist2d": dist2d,
       "granite": granite, "moe": moe, "families": families,
-      "train": train, "sharded": sharded}, indent=1))
+      "train": train, "sharded": sharded, "examples": examples}, indent=1))
   log(card)
   print(json.dumps({"kernels": entries}), flush=True)
   print(json.dumps({"ok": True, "device": {

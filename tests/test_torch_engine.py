@@ -157,3 +157,19 @@ def test_single_query_engines_match_jax(rmat_small, backend):
   np.testing.assert_allclose(ts.prop["rank"].numpy(),
                              np.asarray(js.prop["rank"]), rtol=1e-5)
   assert int(ts.iteration) == 5 and int(ts.num_active) == n
+
+
+def test_core_exports_the_references_public_names():
+  """``repro_torch.core`` offers every public name of ``repro.core`` that
+  the examples import (``run_graph_program`` in the quickstart); the
+  reference's ``popcount`` is the port's ``algos.triangle_count.popcount32``
+  (int32 words, ROADMAP Queue 3 item 4), not re-exported."""
+  import repro.core as jcore
+  import repro_torch.core as tcore
+  want = {k for k in dir(jcore) if not k.startswith("_")} - {"popcount"}
+  missing = sorted(k for k in want if not hasattr(tcore, k))
+  assert not missing, missing
+  assert tcore.run_graph_program is teng.run_graph_program
+  assert tcore.run_fixed_iters is teng.run_fixed_iters
+  assert tcore.EngineState is teng.EngineState
+  assert tcore.dense_adjacency is TG.dense_adjacency

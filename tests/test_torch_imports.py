@@ -1,5 +1,6 @@
-"""Import guard: the port and chip_smoke.py import nothing of JAX or of the
-JAX package, and the port's entry points do not fall back to the CPU."""
+"""Import guard: the port, its examples (``examples/*_torch.py``) and
+chip_smoke.py import nothing of JAX or of the JAX package, and the port's
+entry points do not fall back to the CPU."""
 
 import ast
 import pathlib
@@ -12,8 +13,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+EXAMPLES = ("quickstart_torch", "graph_analytics_suite_torch",
+            "multi_query_service_torch", "distributed_pagerank_torch",
+            "serve_lm_torch")
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -87,3 +91,33 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
   params = init_params(model.defs(), gen, device="cpu")
   assert params["embed"].device.type == "cpu"
   assert model.init_cache(2, 8, device="cpu")["h"].device.type == "cpu"
+
+
+def test_examples_import_with_jax_blocked():
+  code = (
+      "import importlib, sys\n"
+      "for m in ('jax', 'jaxlib', 'repro'):\n"
+      "  sys.modules[m] = None\n"
+      f"sys.path.insert(0, {str(ROOT / 'examples')!r})\n"
+      f"for name in {EXAMPLES!r}:\n"
+      "  assert callable(importlib.import_module(name).main)\n"
+      "assert not any(k.split('.')[0] in ('jax', 'repro') and v is not None\n"
+      "               for k, v in sys.modules.items())\n")
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, timeout=120,
+                        env={"PYTHONPATH": str(ROOT / "src"),
+                             "PATH": "/usr/bin:/bin"})
+  assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_need_a_card_unless_asked_for_cpu(name):
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default device is valid")
+  import importlib.util
+  spec = importlib.util.spec_from_file_location(
+      f"_example_{name}", ROOT / "examples" / f"{name}.py")
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    mod.main([])
