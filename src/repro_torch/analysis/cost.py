@@ -32,7 +32,9 @@ fake tensors of the global shapes, to propagate shapes, are not counted.
   * ``collectives``: per ``"kind|group size"`` the kind (the reference's
     names: ``all-reduce``, ``all-gather``, ``reduce-scatter``,
     ``all-to-all``, ``collective-permute``), the group size, the count and
-    the output bytes.
+    the output bytes; functional collectives (DTensor's) and c10d's
+    in-place ones (``torch.distributed.all_reduce`` and its siblings)
+    alike.
 """
 
 from __future__ import annotations
@@ -69,6 +71,12 @@ _COLLECTIVES = {
     "reduce_scatter_tensor": "reduce-scatter",
     "all_to_all_single": "all-to-all", "broadcast": "collective-permute",
     "broadcast_": "collective-permute",
+    # c10d's in-place ops, which ``torch.distributed.all_reduce`` and its
+    # siblings dispatch (the 2-D runner's collectives).
+    "allreduce_": "all-reduce", "allgather_": "all-gather",
+    "_allgather_base_": "all-gather", "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter", "alltoall_": "all-to-all",
+    "alltoall_base_": "all-to-all",
 }
 
 
@@ -81,9 +89,15 @@ def _tensors(x):
 
 
 def _group_size(args) -> int:
-  """The size of the process group named by a functional collective's
-  arguments (its last string argument)."""
+  """The size of the process group of a collective's arguments: a c10d
+  op's ``ProcessGroup`` object, or a functional collective's group name
+  (its last string argument)."""
+  import torch.distributed as dist
   from torch.distributed.distributed_c10d import _resolve_process_group
+  for a in args:
+    if isinstance(a, torch.ScriptObject) and \
+        a._type().qualified_name().endswith(".ProcessGroup"):
+      return dist.ProcessGroup.unbox(a).size()
   names = [a for a in args if isinstance(a, str)]
   if not names:
     return 0

@@ -12,6 +12,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch._tree import tree_map
+
 # Reduction kinds: the first five have scatter fast paths; ``generic`` (a
 # program's own ``reduce``) runs as spmv._axis_tree_reduce /
 # spmv._segment_reduce_scan.
@@ -75,3 +77,27 @@ MAX_TIMES = Semiring("max_times", torch.maximum, torch.mul, "max",
                      "msg_times_edge")
 OR_AND = Semiring("or_and", torch.logical_or, torch.logical_and, "any")
 MIN_FIRST = Semiring("min_first", torch.minimum, lambda m, e: m, "min", "msg")
+
+
+def tree_select(mask: torch.Tensor, a, b):
+  """``torch.where`` over pytrees, broadcasting ``mask`` over trailing dims."""
+
+  def sel(x, y):
+    m = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
+    return torch.where(m, x, y)
+
+  return tree_map(sel, a, b)
+
+
+def _scalar(f):
+  """A 0-d tensor or array as the Python number ``full_like`` takes."""
+  return f.item() if hasattr(f, "item") else f
+
+
+def tree_full_like(tree, fill):
+  """A pytree of ``full_like`` tensors; ``fill`` may be a pytree of scalars."""
+  if isinstance(fill, (int, float, bool)) or (
+      hasattr(fill, "ndim") and getattr(fill, "ndim", None) == 0
+  ):
+    return tree_map(lambda x: torch.full_like(x, _scalar(fill)), tree)
+  return tree_map(lambda x, f: torch.full_like(x, _scalar(f)), tree, fill)

@@ -79,6 +79,10 @@ class ParamDef:
   scale: Optional[float] = None  # stddev; None -> 1/sqrt(fan_in)
 
 
+def is_param_def(x) -> bool:
+  return isinstance(x, ParamDef)
+
+
 def init_params(defs: PyTree, generator: torch.Generator,
                 device: DeviceLike = "cuda") -> PyTree:
   """Materialize parameters from ``generator`` (on ``device``), leaf by leaf
@@ -229,6 +233,15 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
   x32 = x.float()
   var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
   return (x32 * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+  x32 = x.float()
+  mu = torch.mean(x32, dim=-1, keepdim=True)
+  var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+  return ((x32 - mu) * torch.rsqrt(var + eps) * gamma.float()
+          + beta.float()).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float,

@@ -104,6 +104,30 @@ def test_collective_bytes_per_layer(fake16):
   assert res["product_flops"] == 4096 * 10
 
 
+def test_c10d_collectives_counted_with_their_group(fake16):
+  """``torch.distributed``'s own collectives (the 2-D runner's), which
+  dispatch c10d's in-place ops: an all-reduce over the world, one over a
+  group of 4 and an all-gather over that group, each with its group's size
+  and its output bytes."""
+  import torch.distributed as dist
+  group = dist.new_group([0, 1, 2, 3])
+  x = torch.ones(8)
+
+  def step(x):
+    dist.all_reduce(x)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    parts = [torch.empty_like(x) for _ in range(4)]
+    dist.all_gather(parts, x, group=group)
+    return parts
+
+  res = analyze(step, x)
+  assert {k: (v["kind"], v["group_size"], v["count"], v["bytes"])
+          for k, v in res["collectives"].items()} == {
+      "all-reduce|16": ("all-reduce", 16, 1, 32),
+      "all-reduce|4": ("all-reduce", 4, 1, 32),
+      "all-gather|4": ("all-gather", 4, 1, 4 * 32)}
+
+
 def test_dtensor_counts_the_rank_not_the_global_op(fake16):
   """On DTensors the mode counts the local shards' product and DTensor's
   collective, not DTensor's shape propagation at global shapes."""

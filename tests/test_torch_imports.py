@@ -16,8 +16,18 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 EXAMPLES = ("quickstart_torch", "graph_analytics_suite_torch",
             "multi_query_service_torch", "distributed_pagerank_torch",
             "serve_lm_torch")
+BENCH_FILES = sorted((ROOT / "benchmarks").glob("*_torch.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
-    (ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
+    (ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"] + \
+    BENCH_FILES
+BENCH_ENTRY_POINTS = (
+    ("bench_algorithms_torch", "main", (8,)),
+    ("bench_algorithms_torch", "multi_query", (8,)),
+    ("bench_native_gap_torch", "main", (8,)),
+    ("bench_optimizations_torch", "main", (8,)),
+    ("bench_scaling_torch", "main", ()),
+    ("run_torch", "main", ([],)),
+    ("run_torch", "main", (["--device", "cuda", "--quick"],)))
 
 
 def _forbidden(name: str) -> bool:
@@ -121,3 +131,61 @@ def test_examples_need_a_card_unless_asked_for_cpu(name):
   spec.loader.exec_module(mod)
   with pytest.raises(RuntimeError, match="device='cpu'"):
     mod.main([])
+
+
+def _imports(path):
+  """Every module name ``path`` imports (``from a import b`` gives ``a``
+  and ``a.b``)."""
+  tree = ast.parse(path.read_text(), filename=str(path))
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      yield from (a.name for a in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.module:
+      yield node.module
+      yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("path", BENCH_FILES,
+                         ids=[p.name for p in BENCH_FILES])
+def test_benchmarks_import_only_their_torch_siblings(path):
+  """A harness file of the port imports ``benchmarks.*_torch`` and never a
+  reference benchmark module (``benchmarks/common.py`` imports JAX)."""
+  names = set(_imports(path))
+  bench = {m for m in names if m.split(".")[0] == "benchmarks" and m != (
+      "benchmarks")}
+  assert all(m.split(".")[1].endswith("_torch") for m in bench), bench
+  assert not [m for m in names if _forbidden(m)]
+
+
+def test_benchmarks_import_with_jax_blocked():
+  names = [p.stem for p in BENCH_FILES]
+  assert set(names) >= {"common_torch", "bench_algorithms_torch",
+                        "bench_native_gap_torch", "bench_optimizations_torch",
+                        "run_torch", "bench_scaling_torch", "roofline_torch"}
+  code = (
+      "import importlib, sys\n"
+      "for m in ('jax', 'jaxlib', 'repro'):\n"
+      "  sys.modules[m] = None\n"
+      f"for name in {names!r}:\n"
+      "  importlib.import_module('benchmarks.' + name)\n"
+      "bad = [k for k, v in sys.modules.items() if v is not None and (\n"
+      "    k.split('.')[0] in ('jax', 'repro') or (\n"
+      "        k.startswith('benchmarks.') and not k.endswith('_torch')))]\n"
+      "assert not bad, bad\n")
+  proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                        text=True, timeout=120, cwd=ROOT,
+                        env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}",
+                             "PATH": "/usr/bin:/bin"})
+  assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module,fn,args", BENCH_ENTRY_POINTS,
+                         ids=[f"{i}-{m}.{f}" for i, (m, f, _) in
+                              enumerate(BENCH_ENTRY_POINTS)])
+def test_benchmarks_need_a_card_unless_asked_for_cpu(module, fn, args):
+  if torch.cuda.is_available():
+    pytest.skip("a CUDA device is present: the default device is valid")
+  import importlib
+  mod = importlib.import_module(f"benchmarks.{module}")
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    getattr(mod, fn)(*args)
