@@ -404,13 +404,34 @@ def random_mask(gen, n_pad, width, kind="random", p_mask=0.7):
   """``random``: independent slots; ``sorted``: prefix rows of random
   lengths in descending order (several lane segments, no mask read);
   ``edge_rows``: random rows among empty rows and rows whose only set slot
-  is the last."""
+  is the last.  Short rows: ``short`` prefix rows of 0, 1, 3, 4 and 5
+  slots in descending order (a two-lane segment, then one-lane rows, then
+  empty ones); ``short_unsorted`` prefix rows of 0-4 slots in no order
+  (every row one lane, empty rows among them); ``short_holes`` random
+  slots among the first 4 (holed masks, one lane); ``lane_boundary``
+  40 rows of 5 slots, then rows of 3 (the one-lane class begins inside
+  the second 32-row chunk)."""
   import torch
   dev = "cuda"
+  slot = torch.arange(width, device=dev)[None]
   if kind == "sorted":
     lens = torch.randint(0, width + 1, (n_pad,), generator=gen, device=dev)
     lens = lens.sort(descending=True).values
-    return torch.arange(width, device=dev)[None] < lens[:, None]
+    return slot < lens[:, None]
+  if kind in ("short", "short_unsorted"):
+    choice = torch.tensor([0, 1, 3, 4, 5] if kind == "short"
+                          else [0, 1, 2, 3, 4], device=dev)
+    lens = choice[torch.randint(0, 5, (n_pad,), generator=gen, device=dev)]
+    if kind == "short":
+      lens = lens.sort(descending=True).values
+    return slot < lens[:, None].clamp(max=width)
+  if kind == "short_holes":
+    return (slot < 4) & (torch.rand((n_pad, width), generator=gen,
+                                    device=dev) < 0.6)
+  if kind == "lane_boundary":
+    lens = torch.full((n_pad,), 3, device=dev)
+    lens[:40] = 5
+    return slot < lens[:, None].clamp(max=width)
   mask = torch.rand((n_pad, width), generator=gen, device=dev) < p_mask
   if kind == "edge_rows":
     mask[::3] = False
@@ -494,14 +515,34 @@ def phase_kernel_sweep(ell_mod, ref_mod) -> dict:
                 for sem, dtype in (("bfs", torch.int32),
                                    ("min_plus", torch.float32),
                                    ("pagerank", torch.float32))]
+  # Short rows (the one-lane class and its boundary with two lanes), every
+  # form, Q = 1 and 8, every source active and 10% active; width 6 takes
+  # the scalar slot loads.
+  short = ("short", "short_unsorted", "short_holes", "lane_boundary")
+  for mask_kind in short:
+    for q in (1, 8):
+      for p_act in (2.0, 0.1):
+        for sem in SEMIRINGS:
+          dtype = torch.int32 if sem == "bfs" else torch.float32
+          kw = {"mask": mask_kind, "p_act": p_act}
+          if SEMIRINGS[sem][0] == DST_OP:
+            kw["kd"] = q
+          cases.append(((300, 8, 310, q), sem, dtype, kw))
+        cases.append(((300, 8, 310, q), "min_plus", torch.float16,
+                      {"mask": mask_kind, "p_act": p_act}))
+  for mask_kind in ("short", "short_holes"):
+    for sem in ("min_plus", "pagerank", "bfs"):
+      cases.append(((300, 6, 310, 1), sem,
+                    torch.int32 if sem == "bfs" else torch.float32,
+                    {"mask": mask_kind, "p_act": 0.5}))
   max_err = 0.0
   for shape, sem, dtype, kw in cases:
     n_pad, width, n_src, q = shape
     op, red = SEMIRINGS[sem]
-    kw = dict(kw)
+    desc, kw = dict(kw), dict(kw)
     cols, vals, mask, msg, act = random_ell(
         gen, n_pad, width, n_src, q, dtype,
-        p_act=2.0 if kw.pop("all_active", False) else 0.8,
+        p_act=2.0 if kw.pop("all_active", False) else kw.pop("p_act", 0.8),
         mask_kind=kw.pop("mask", "random"))
     if kw.pop("nan", False):
       msg[torch.rand(msg.shape, generator=gen, device="cuda") < 0.01] = (
@@ -524,7 +565,7 @@ def phase_kernel_sweep(ell_mod, ref_mod) -> dict:
                                   process=ell_mod.plain_process(op),
                                   reduce_kind=red)
     torch.cuda.synchronize()
-    what = f"{shape} {sem} {dtype} {kw} Kd={dprop.shape[1]}"
+    what = f"{shape} {sem} {dtype} {desc} Kd={dprop.shape[1]}"
     if msg.is_floating_point() and torch.isnan(msg).any():
       what += " with NaN"
       if not torch.isnan(yr).any():
@@ -800,7 +841,10 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
   and gradient sweep runs), timed with CUDA events beside the plain version
   (and ``torch.sparse.mm`` for PageRank's form), with its byte bound.
   ``csr`` memoizes the graph's CSR matrix for ``torch.sparse.mm``.
-  Returns the row and the all-slots bound."""
+  Returns the row and its record: the all-slots bound, the kernel's own
+  time on the card (``torch.profiler``'s device events: the events' time
+  also holds the host's pace of issuing calls) and the bound's share of
+  each."""
   import torch
   n, n_pad, width = g.n, g.n_pad, g.width
   active = torch.ones((n,), dtype=torch.bool, device="cuda")
@@ -843,14 +887,22 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
   del yr, rr
   plain_ms = cuda_ms(run_all(plain), iters=3 if random_calls else 1,
                      warmup=0) / len(calls)
+  # At least 20 launches in the profiler's window, as the events time them.
+  reps = max(1, 20 // len(calls))
+  busy = device_busy(lambda: [run_all(kernel)() for _ in range(reps)])
+  device_ms = (None if busy["busy_ms"] is None
+               else busy["busy_ms"] / (reps * len(calls)))
   size = calls[0][0].element_size()
   edge = op in ell_mod.EDGE_OPS
   # Bytes the work needs, whatever implements it, a launch on average:
-  # cols (and vals for the edge forms) of the valid slots, one row extent
-  # per packed row, the active sources' messages, active and dprop once,
-  # y and recv once.
+  # cols of the valid slots, vals for the edge forms of the valid slots
+  # whose source is active (no other is needed), one row
+  # extent per packed row, the active sources' messages, active and dprop
+  # once, y and recv once.
   active_msgs = sum(int(a.sum()) for _, a in calls) / len(calls)
-  need = (valid_slots * (4 + (4 if edge else 0)) + 4 * n_pad
+  edge_slots = (sum(int((g.mask & a[g.cols]).sum()) for _, a in calls)
+                / len(calls) if edge else 0)
+  need = (valid_slots * 4 + edge_slots * 4 + 4 * n_pad
           + active_msgs * q * size + n
           + (0 if kd is None else n_pad * kd * size)
           + n_pad * q * size + n_pad)
@@ -894,13 +946,19 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
       "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
       "bound_ms": need / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
       "library_ms": library_ms}
-  array_bound = full / H100_BYTES_PER_S * 1e3
+  record = {"ell_array_bound_ms": full / H100_BYTES_PER_S * 1e3,
+            "device_ms": device_ms,
+            "bound_share": entry["bound_ms"] / kernel_ms,
+            "device_bound_share": (None if device_ms is None
+                                   else entry["bound_ms"] / device_ms)}
   log(f"{phase}: {name}: kernel {kernel_ms:.4f} ms a launch over "
-      f"{len(calls)} call(s), plain {plain_ms:.3f} ms, bound "
-      f"{entry['bound_ms']:.4f} ms, ELL-array bound {array_bound:.4f} ms, "
-      f"library {library_ms}")
+      f"{len(calls)} call(s) (bound share {record['bound_share']:.3f}), "
+      f"on the card {device_ms} ms (share "
+      f"{record['device_bound_share']}), plain {plain_ms:.3f} ms, bound "
+      f"{entry['bound_ms']:.4f} ms, ELL-array bound "
+      f"{record['ell_array_bound_ms']:.4f} ms, library {library_ms}")
   torch.cuda.empty_cache()
-  return entry, array_bound
+  return entry, record
 
 
 def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
@@ -915,7 +973,7 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
   ext = {"row_end": g.row_end, "mask_prefix": g.mask_prefix,
          "segments": ell_mod.row_segments(g.row_end)}
   entries = []
-  array_bounds = {}  # bytes of every ELL slot / HBM rate, for the record
+  records = {}  # each row's all-slots bound, device time and bound shares
   # name, op, reduce, dtype, Q, Kd (None: no dprop), replaces, and the
   # phase-3 calls it is timed on (None: one call with every source active,
   # as each PageRank and gradient sweep runs).
@@ -943,7 +1001,7 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
           or m.shape[1] != q or m.dtype != dtype
           for m, _, kw in recorded[key]):
         raise AssertionError(f"{name}: the recorded calls are not its own")
-    entry, array_bounds[name] = time_ell(
+    entry, records[name] = time_ell(
         "phase 4", g, ell_mod, ref_mod, gen, csr, name, op, red, dtype, q,
         kd, replaces, calls, launches)
     entries.append(entry)
@@ -992,7 +1050,7 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
         "spill_merge_ms": cuda_ms(lambda: merge_spill(
             g, y, recv, m, active, m, prog), iters=10)}
   log("phase 4: superstep split " + json.dumps(split))
-  return entries, array_bounds, split, by_frontier
+  return entries, records, split, by_frontier
 
 
 # ---------------------------------------------------------------------------
@@ -3502,7 +3560,7 @@ def examples_road(side: int, ell_mod, ref_mod):
       "sssp": record_calls(lambda: run_sssp(kernel),
                            every=ROAD_RECORD_EVERY)}
   gen = torch.Generator(device="cuda").manual_seed(14)
-  entries, csr = [], {}
+  entries, csr, records = [], {}, {}
   for algo, op, red, dtype in (
       ("bfs", "msg_plus_one", "min", torch.int32),
       ("sssp", "msg_plus_edge", "min", torch.float32),
@@ -3510,14 +3568,14 @@ def examples_road(side: int, ell_mod, ref_mod):
     calls = ([(m, a) for m, a, _ in recorded[algo]] if algo in recorded
              else None)
     tname = "int32" if dtype == torch.int32 else "f32"
-    entry, _ = time_ell(
-        "phase 14", g, ell_mod, ref_mod, gen, csr,
-        f"ell_spmv[road-grid,{algo},{tname},{red},Q=1]", op, red, dtype, 1,
+    name = f"ell_spmv[road-grid,{algo},{tname},{red},Q=1]"
+    entry, records[name] = time_ell(
+        "phase 14", g, ell_mod, ref_mod, gen, csr, name, op, red, dtype, 1,
         None, "src/repro/kernels/ell_spmv.py:192", calls, launches[algo])
     entries.append(entry)
   del recorded, csr, g
   torch.cuda.empty_cache()
-  out["kernel_rows"] = [e["name"] for e in entries]
+  out["kernel_rows"] = records
   return out, entries
 
 
@@ -4083,7 +4141,7 @@ def main(argv=None) -> int:
 
   sweep = phase_kernel_sweep(ell_mod, ref_mod)
   slice_stats, g, recorded, edges = phase_slice(args.scale, 32, ell_mod)
-  entries, array_bounds, split, by_frontier = phase_timing(
+  entries, ell_rows, split, by_frontier = phase_timing(
       g, ell_mod, ref_mod, slice_stats["launches"], recorded)
   suite = phase_suite_graph(g, edges, ell_mod)
   dist_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_2d_")
@@ -4193,7 +4251,7 @@ def main(argv=None) -> int:
   OUT_DIR.mkdir(exist_ok=True)
   (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
       "card": card, "build": builds, "sweep": sweep, "slice": slice_stats,
-      "kernels": entries, "ell_array_bound_ms": array_bounds,
+      "kernels": entries, "ell_rows": ell_rows,
       "ell_ms_by_frontier": by_frontier, "superstep_split": split,
       "suite": suite, "scan": scan, "lm": lm, "dist2d": dist2d,
       "granite": granite, "moe": moe, "families": families,

@@ -55,6 +55,9 @@ class CudaLibrary:
     self.info: dict = {}
 
   def load(self) -> ctypes.CDLL:
+    lib = self._lib  # once loaded, no lock: every launch asks
+    if lib is not None:
+      return lib
     with self._lock:
       if self._lib is not None:
         return self._lib

@@ -25,35 +25,58 @@
 // of row extent per packed row, msg and active read once, y and recv
 // written once.  On the RMAT scale-20 graph of chip_smoke.py (9.2% of the
 // ELL slots valid) that is 73.5 MB at Q = 1 (0.022 ms at 3.35 TB/s) and
-// 132 MB at Q = 8; reading every ELL slot would be about three times as
-// much.  What the card pays for, though, is the gathers: each slot's
-// message and active flag are random reads of a 32-byte sector from L1 or
-// L2, and they, not the bytes from memory, set the pace.  The first version
-// of this kernel (one warp per row, every slot to the row's width, a chain
-// of dependent loads per slot) ran at 16x that bound.
+// 132 MB at Q = 8; on the road grid (1,048,576 rows of 2-4 slots, width 8)
+// 31.5 MB at PageRank (0.0094 ms).  What the card pays for, though, is the
+// gathers: each slot's message and active flag are random reads of a
+// 32-byte sector from L1 or L2, and on RMAT-20 they, not the bytes from
+// memory, set the pace.  On the road grid the data (cols in 32-byte rows,
+// half of each read) fits the 50 MB L2, and what sets the pace is the chain
+// of dependent loads a warp waits on (extent, cols, active flags, messages)
+// and the launch's fixed cost.  The first version of this kernel (one warp
+// per row, every slot to the row's width, a chain of dependent loads per
+// slot) ran at 16x the RMAT bound.
 //
 // Design:
 // * The kernel never reads a slot at or beyond row_end[r], one past the
 //   row's last set slot, and where the mask is a prefix of every row (every
 //   graph build_ell makes) it does not read the mask at all.
-// * Each row gets G lanes, G in {2, 4, 8, 16, 32}, the least that covers
-//   its extent at 4 slots a lane; a warp serves 32 / G rows.  Packed rows
-//   are degree-sorted, so a few row segments cover each G; a table of
-//   segments (first row, end row, G, first warp), made once per graph by
-//   the wrapper (kernels/ell_spmv.py), maps each warp of rows to its rows.
+// * Lane classes: each row gets G lanes, G in {1, 2, 4, 8, 16, 32}, the
+//   least that covers its extent at 4 slots a lane; a warp serves 32 / G
+//   rows.  Packed rows are degree-sorted, so a few row segments cover each
+//   G; a table of segments (first row, end row, G, first warp), made once
+//   per graph by the wrapper (kernels/ell_spmv.py), maps each warp of rows
+//   to its rows.  The query-tiled grid has its own table, with G >= 2.
 // * A lane loads its next 4 slots' cols (and vals, and mask where it is
 //   read) with one 16-byte load, evict-first, so that the ELL arrays, read
 //   once, do not push the gathered messages out of L1; then the 4 slots'
 //   active flags, then the messages of the active ones only.  The 8-query
 //   tile keeps 1 slot a lane: its message rows take the registers.
-// * Each call is one cooperative launch of as many blocks as fit on the
-//   card: the blocks first find whether every source is active, cross a
-//   grid barrier, and then walk the (warp of rows, query tile) pairs in
-//   turn; when every source is active (PageRank, a full frontier) no slot
-//   reads an active flag, which halves the gathers.  (An all-active byte
-//   written by torch.all before a plain launch, in place of the barrier,
-//   was 6-7% slower at PageRank and up to 17% at a 10% frontier on an
-//   H100; PERF.md.)
+// * The one-lane class (rows of 0-4 slots: the road grid, RMAT's tail) has
+//   a path of its own at Q = 1 (lane_row): a lane per row, 32 consecutive
+//   rows a warp; a row with a set slot loads its cols beside its extent;
+//   the edge values are read only for rows with an active source unless
+//   every source is active.
+// * Launch kinds: a table with a row of more than 4 slots gets one
+//   cooperative launch of as many blocks as fit on the card: the blocks
+//   first find whether every source is active, cross a grid barrier, and
+//   then walk the (warp of rows, query tile) pairs in turn; when every
+//   source is active (PageRank, a full frontier) no slot reads an active
+//   flag, which halves RMAT's gathers.  (An all-active byte written by
+//   torch.all before a plain launch, in place of the barrier, was 6-7%
+//   slower at PageRank and up to 17% at a 10% frontier on an H100;
+//   PERF.md.)  A table whose rows are all in the one-lane class gets a
+//   plain launch of a warp for each 32 rows and reads the flags: the
+//   pass and the barrier cost the card 5.1-5.8 us (6.38-7.00 us against
+//   1.25 for an empty launch of the 660 resident blocks;
+//   tools/ell_launch_cost.py), more than the flags they spare the road
+//   grid's PageRank (PERF.md).
+// * Measured on the road grid (H100 80GB HBM3, 700 W; the kernel's device
+//   time a launch, tools/time_ell_kernel.py; the previous design -> this
+//   one): PageRank 0.0381 -> 0.0183 ms, BFS on its recorded frontiers
+//   0.0392 -> 0.0202, SSSP 0.0456 -> 0.0224; torch.sparse.mm 0.034.  The
+//   data fits the L2, and a launch takes 2.5x its byte bound.  A call's
+//   host time in the wrapper (38-69 us) is more than the kernel's there,
+//   so the events of back-to-back calls time the host.
 // * Each lane keeps up to QT query accumulators (one query tile of up to
 //   8); the G lanes of a row combine them with __shfl_xor_sync, so nothing
 //   is carried between blocks and no atomics are needed.  This takes the
@@ -76,8 +99,15 @@ enum Op {
 enum DType { kF32 = 0, kF16 = 1, kI32 = 2 };
 // Launch flags: the mask is a prefix of every row (do not read it); cols,
 // vals and mask rows allow 4-slot vector loads; message rows allow 4-value
-// vector loads; active allows 16-flag vector loads.
-enum Flags { kMaskIsPrefix = 1, kVecSlots = 2, kVecMsg = 4, kVecActive = 8 };
+// vector loads; active allows 16-flag vector loads; every row is in the
+// one-lane class (a plain launch sized to the rows, no all-active pass).
+enum Flags {
+  kMaskIsPrefix = 1,
+  kVecSlots = 2,
+  kVecMsg = 4,
+  kVecActive = 8,
+  kShortRows = 16
+};
 
 // Slots a lane loads per step: 4 (one 16-byte load of cols) for a single
 // query; 1 for the 8-query tile, whose 8-value message rows take the
@@ -255,6 +285,9 @@ struct Args {
   // carry over from launch to launch on one stream (see grid_barrier).
   unsigned* sync;
   int n_src, nseg, num_warps, width, q, q_tile, kd, flags, warps_per_block;
+  // Rows [0, n_filled) each have a set slot: the one-lane class reads their
+  // cols beside their extent.
+  int n_filled;
 };
 
 // A grid-wide barrier (the launch is cooperative: every block resident).
@@ -428,35 +461,132 @@ __device__ __forceinline__ void warp_rows(const Args& args, int warp,
   }
 }
 
-// A cooperative launch of as many blocks as fit on the card: the blocks
-// first find whether every source is active (then no slot reads an active
-// flag), cross a grid barrier, and then the grid's warps walk the warps of
-// rows in turn, one query tile after another.
-template <typename T, int R, int OP, int QT>
+// The one-lane class at a query tile of 1: a row of at most 4 slots to a
+// lane, 32 consecutive packed rows to a warp, so the warp's 16-byte cols
+// loads cover consecutive rows.  A row that has a set slot (row <
+// n_filled) loads its cols beside its extent, not after it: the two loads
+// are in flight together, and no slot is read that the 4-slot load of a
+// non-empty row would not read.  Then the 4 slots' active flags, then the
+// messages of the active sources and, unless every source is active, the
+// edge values of rows with one (most rows have none on a thin frontier).
+template <typename T, int R, int OP>
+__device__ __forceinline__ void lane_row(const Args& args, int warp,
+                                         int tile, int4 seg,
+                                         bool all_active) {
+  const long long row = seg.x +
+                        static_cast<long long>(warp - seg.w) * 32 +
+                        (threadIdx.x & 31);
+  if (row >= seg.y) return;
+  const int q = args.q;
+  const bool vec = args.flags & kVecSlots;
+  const T* vals = static_cast<const T*>(args.vals);
+  const T* msg = static_cast<const T*>(args.msg);
+  const long long base = row * args.width;
+  T d = Num<T>::zero();
+  if (OP == kEdgeMinusMsgDstTimesMsg) {
+    d = ro(static_cast<const T*>(args.dprop) + row * args.kd +
+           (args.kd == 1 ? 0 : tile));
+  }
+  int c[4] = {0, 0, 0, 0};
+  T e[4];
+  uint8_t mk[4] = {1, 1, 1, 1};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) e[i] = Num<T>::zero();
+  int end;
+  if (vec && row < args.n_filled) {
+    ld4<true>(args.cols + base, c);
+    if (reads_edge<OP>() && all_active) ld4<true>(vals + base, e);
+    end = st(args.row_end + row);
+  } else {
+    end = st(args.row_end + row);
+    if (vec) {
+      if (end > 0) {
+        ld4<true>(args.cols + base, c);
+        if (reads_edge<OP>() && all_active) ld4<true>(vals + base, e);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i < end) {
+          c[i] = st(args.cols + base + i);
+          if (reads_edge<OP>() && all_active) e[i] = st(vals + base + i);
+        }
+      }
+    }
+  }
+  if (!(args.flags & kMaskIsPrefix) && end > 0) {
+    if (vec) {
+      ld4<true>(args.mask + base, mk);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i < end) mk[i] = st(args.mask + base + i);
+      }
+    }
+  }
+  uint8_t a[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a[i] = (i < end && mk[i]) ? (all_active ? 1 : ro(args.active + c[i])) : 0;
+  }
+  T m[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = a[i] ? ro(msg + static_cast<long long>(c[i]) * q + tile)
+                : Num<T>::zero();
+  }
+  if (reads_edge<OP>() && !all_active && (a[0] | a[1] | a[2] | a[3])) {
+    if (vec) {
+      ld4<true>(vals + base, e);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (a[i]) e[i] = st(vals + base + i);
+      }
+    }
+  }
+  T acc = identity<T, R>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (a[i]) acc = combine<T, R>(acc, process<T, OP>(m[i], e[i], d));
+  }
+  static_cast<T*>(args.y)[row * q + tile] = acc;
+  if (tile == 0) args.recv[row] = (a[0] | a[1] | a[2] | a[3]) ? 1 : 0;
+}
+
+// COOP: a cooperative launch of as many blocks as fit on the card; the
+// blocks first find whether every source is active (then no slot reads an
+// active flag) and cross a grid barrier.  Else a plain launch of a warp for
+// each warp of rows, for tables whose rows are all in the one-lane class.
+// Then the grid's warps walk the warps of rows in turn, one query tile
+// after another.
+template <typename T, int R, int OP, int QT, bool COOP>
 __global__ void ell_spmv_kernel(const Args args) {
   const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
                           threadIdx.x;
-  const unsigned gen = volatile_load(args.sync + kGeneration);
-  bool inactive = false;
-  long long done = 0;
-  if (args.flags & kVecActive) {  // 16 flags a load
-    const uint4* a16 = reinterpret_cast<const uint4*>(args.active);
-    done = args.n_src / 16 * 16;
-    for (long long v = first; v < args.n_src / 16; v += threads) {
-      const uint4 w = __ldcs(a16 + v);
-      inactive |= (w.x & w.y & w.z & w.w) != 0x01010101u;
+  bool all_active = false;
+  if (COOP) {
+    const unsigned gen = volatile_load(args.sync + kGeneration);
+    bool inactive = false;
+    long long done = 0;
+    if (args.flags & kVecActive) {  // 16 flags a load
+      const uint4* a16 = reinterpret_cast<const uint4*>(args.active);
+      done = args.n_src / 16 * 16;
+      for (long long v = first; v < args.n_src / 16; v += threads) {
+        const uint4 w = __ldcs(a16 + v);
+        inactive |= (w.x & w.y & w.z & w.w) != 0x01010101u;
+      }
     }
+    for (long long v = done + first; v < args.n_src; v += threads) {
+      inactive |= !ro(args.active + v);
+    }
+    if (__syncthreads_or(inactive) && threadIdx.x == 0) {
+      atomicAdd(args.sync + kInactive + (gen & 1), 1u);
+    }
+    grid_barrier(args.sync);
+    all_active = volatile_load(args.sync + kInactive + (gen & 1)) == 0u;
   }
-  for (long long v = done + first; v < args.n_src; v += threads) {
-    inactive |= !ro(args.active + v);
-  }
-  if (__syncthreads_or(inactive) && threadIdx.x == 0) {
-    atomicAdd(args.sync + kInactive + (gen & 1), 1u);
-  }
-  grid_barrier(args.sync);
-  const bool all_active =
-      volatile_load(args.sync + kInactive + (gen & 1)) == 0u;
   const int tiles = (args.q + args.q_tile - 1) / args.q_tile;
   const int warps = static_cast<int>(threads >> 5);
   for (int tile = 0; tile < tiles; ++tile) {
@@ -471,17 +601,21 @@ __global__ void ell_spmv_kernel(const Args args) {
         lo = find_segment(args, warp, lo);
         seg = __ldg(args.segs + lo);
       }
-      warp_rows<T, R, OP, QT>(args, warp, tile, seg, all_active);
+      if (QT == 1 && seg.z == 1) {
+        lane_row<T, R, OP>(args, warp, tile, seg, all_active);
+      } else {
+        warp_rows<T, R, OP, QT>(args, warp, tile, seg, all_active);
+      }
     }
   }
 }
 
 template <typename T, int R, int OP, int QT>
-cudaError_t launch_tiled(const Args& a, cudaStream_t stream) {
+cudaError_t launch_coop(const Args& a, cudaStream_t stream) {
   // As many blocks as can be resident at once (a cooperative launch
   // refuses more), and no more than the rows need.  The card's size and
   // the kernel's occupancy are asked once per device and block size.
-  const auto kernel = ell_spmv_kernel<T, R, OP, QT>;
+  const auto kernel = ell_spmv_kernel<T, R, OP, QT, true>;
   const dim3 block(32 * a.warps_per_block);
   static int cached_dev = -1, cached_threads = 0, resident = 0;
   int dev = 0;
@@ -506,8 +640,14 @@ cudaError_t launch_tiled(const Args& a, cudaStream_t stream) {
 
 template <typename T, int R, int OP>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  return a.q_tile == 1 ? launch_tiled<T, R, OP, 1>(a, stream)
-                       : launch_tiled<T, R, OP, 8>(a, stream);
+  if (a.q_tile != 1) return launch_coop<T, R, OP, 8>(a, stream);
+  if (!(a.flags & kShortRows)) return launch_coop<T, R, OP, 1>(a, stream);
+  // Every row of at most 4 slots: a plain launch, a warp for each 32 rows.
+  const int needed = (a.num_warps + a.warps_per_block - 1) /
+                     a.warps_per_block;
+  ell_spmv_kernel<T, R, OP, 1, false>
+      <<<needed, 32 * a.warps_per_block, 0, stream>>>(a);
+  return cudaSuccess;
 }
 
 template <typename T, int R>
@@ -548,14 +688,22 @@ extern "C" int graphmat_ell_spmv(const void* cols, const void* vals,
                                  int n_src, int nseg,
                                  int num_warps, int width, int q, int q_tile,
                                  int kd, int flags, int warps_per_block,
-                                 int dtype, int reduce, int op,
-                                 void* stream) {
+                                 int n_filled, int dtype, int reduce, int op,
+                                 int device, void* stream) {
   if (sync == nullptr || n_src < 1 || nseg < 1 || num_warps < 1 ||
       width < 1 || q < 1 || q_tile < 1 || q_tile > 8 ||
-      warps_per_block < 1 || warps_per_block > 32 ||
+      warps_per_block < 1 || warps_per_block > 32 || n_filled < 0 ||
       (op == kEdgeMinusMsgDstTimesMsg &&
        (dprop == nullptr || (kd != 1 && kd != q)))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // The launch goes to the stream's device, made current for it.
+  int current = 0;
+  if (cudaGetDevice(&current) != cudaSuccess) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (current != device && cudaSetDevice(device) != cudaSuccess) {
+    return static_cast<int>(cudaGetLastError());
   }
   cudaGetLastError();
   const Args a{static_cast<const int*>(cols), vals,
@@ -564,7 +712,7 @@ extern "C" int graphmat_ell_spmv(const void* cols, const void* vals,
                static_cast<const int*>(row_end),
                static_cast<const int4*>(segs), y, static_cast<int8_t*>(recv),
                static_cast<unsigned*>(sync), n_src, nseg, num_warps, width,
-               q, q_tile, kd, flags, warps_per_block};
+               q, q_tile, kd, flags, warps_per_block, n_filled};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (dtype) {
@@ -572,8 +720,9 @@ extern "C" int graphmat_ell_spmv(const void* cols, const void* vals,
     case kF16: err = launch_reduce<__half>(reduce, op, a, s); break;
     case kI32: err = launch_reduce<int>(reduce, op, a, s); break;
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (current != device) cudaSetDevice(current);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* graphmat_cuda_error_string(int code) {

@@ -8,9 +8,10 @@ and its destination-property operand ``dprop``.  The kernel is
 the edge, 4 of vals per valid slot, 4 bytes of row extent per row, the
 messages and outputs once; on the card, the random gathers) and how its
 design answers that (rows get lanes matched to their extent from a table
-of :class:`RowSegments`, which this module owns; each call is one
-cooperative launch that skips the per-slot active flags when every source
-is active).
+of :class:`RowSegments`, which this module owns, one lane for a row of at
+most 4 slots; a table with a longer row gets a cooperative launch that
+skips the per-slot active flags when every source is active, a table of
+short rows only a plain launch).
 
 The kernel is built with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at its first launch, into ``build/`` at the repository
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -44,18 +46,25 @@ _REDUCE_CODE = {"add": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.int32: 2}
 # Launch flags, as the source's Flags enum.
 _MASK_IS_PREFIX, _VEC_SLOTS, _VEC_MSG, _VEC_ACTIVE = 1, 2, 4, 8
+_SHORT_ROWS = 16
 MAX_QUERY_TILE = 8
 DEFAULT_BLOCK_ROWS = 8
-# Lanes the kernel gives one packed row: a power of two in
-# [MIN_ROW_LANES, 32], the least that covers the row's extent at
-# SLOTS_PER_LANE slots a lane (the source's slots_per_lane<1>(): one 16-byte
-# load of cols).  Rows are grouped in runs of SEGMENT_CHUNK, each run taking
-# the lanes of its longest row.
+# Lanes the kernel gives one packed row: a power of two in [1, 32], the
+# least that covers the row's extent at SLOTS_PER_LANE slots a lane (the
+# source's slots_per_lane<1>(): one 16-byte load of cols).  One lane takes a
+# row of 0-4 slots, so a warp serves 32 such rows (the one-lane class: the
+# road grid's rows of 2-4 slots, RMAT's tail of low-degree rows).  The
+# query-tiled grid steps one slot a lane, and its rows keep at least
+# TILED_MIN_LANES lanes: at one lane its 8-query rows of 4 slots ran 5-25%
+# slower on the road grid (H100 80GB HBM3, 700 W; PERF.md).  Rows
+# are grouped in runs of SEGMENT_CHUNK, each run taking the lanes of its
+# longest row.
 SLOTS_PER_LANE = 4
-MIN_ROW_LANES = 2
+TILED_MIN_LANES = 2
 SEGMENT_CHUNK = 32
 
 
+@functools.lru_cache(maxsize=None)
 def config_key(q: int, dtype: torch.dtype, reduce_kind: str,
                process_op: str) -> str:
   """The launch counter's key for one kernel instance and grid."""
@@ -96,7 +105,7 @@ launches = LaunchCounter()
 
 def _bind(lib: ctypes.CDLL) -> None:
   fn = lib.graphmat_ell_spmv
-  fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
+  fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 14
                  + [ctypes.c_void_p])
   fn.restype = ctypes.c_int
 
@@ -106,14 +115,16 @@ LIBRARY = CudaLibrary("ell_spmv.cu", _bind)
 # to launch.  Launches on one stream run in order, so each stream has its
 # own.  A launch that faults leaves the CUDA context unusable (the error is
 # sticky), so no later launch meets words that a launch left half crossed.
-_syncs: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_syncs: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _sync_words(dev: torch.device, stream: int) -> torch.Tensor:
-  key = (dev, stream)
-  if key not in _syncs:
-    _syncs[key] = torch.zeros(4, dtype=torch.int32, device=dev)
-  return _syncs[key]
+def _sync_words(index: int, stream: int) -> torch.Tensor:
+  key = (index, stream)
+  words = _syncs.get(key)
+  if words is None:
+    words = _syncs[key] = torch.zeros(4, dtype=torch.int32,
+                                      device=torch.device("cuda", index))
+  return words
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,20 +133,43 @@ class RowSegments:
 
   ``table[i] = (first row, end row, lanes per row, first warp)``: the rows
   ``[first, end)`` get that many lanes each, and a warp serves ``32 /
-  lanes`` consecutive rows; ``num_warps`` is the total.
+  lanes`` consecutive rows; ``num_warps`` is the total.  ``tiled_table``
+  and ``tiled_num_warps`` are the same for the query-tiled grid (at least
+  :data:`TILED_MIN_LANES` lanes a row).  Rows ``[0, filled_rows)`` each
+  have a set slot; ``short_rows`` says that every row of ``table`` is in
+  the one-lane class.
   """
 
   table: torch.Tensor  # int32[num_segments, 4]
   num_warps: int
+  tiled_table: torch.Tensor  # int32[num_tiled_segments, 4]
+  tiled_num_warps: int
+  filled_rows: int
+  short_rows: bool
 
 
 def row_lanes(length) -> np.ndarray:
   """Lanes for rows of extent ``length`` (see :data:`SLOTS_PER_LANE`)."""
   need = -(-np.asarray(length, np.int64) // SLOTS_PER_LANE)
   lanes = np.full(need.shape, 32, np.int32)
-  for cand in (16, 8, 4, MIN_ROW_LANES):
+  for cand in (16, 8, 4, 2, 1):
     lanes[need <= cand] = cand
   return lanes
+
+
+def _table(chunk_lanes: np.ndarray, n_pad: int, device):
+  """Runs of equal lanes over the chunks as ``(table, num_warps)``."""
+  chunks = chunk_lanes.shape[0]
+  starts = np.flatnonzero(np.diff(chunk_lanes, prepend=-1))
+  table, warp = [], 0
+  for i, lo in enumerate(starts):
+    hi = starts[i + 1] if i + 1 < len(starts) else chunks
+    r0, r1 = int(lo) * SEGMENT_CHUNK, min(int(hi) * SEGMENT_CHUNK, n_pad)
+    g = int(chunk_lanes[lo])
+    table.append((r0, r1, g, warp))
+    warp += -(-(r1 - r0) * g // 32)
+  return (torch.tensor(table, dtype=torch.int32,
+                       device=device).reshape(-1, 4), warp)
 
 
 def row_segments(row_end: torch.Tensor) -> RowSegments:
@@ -152,16 +186,13 @@ def row_segments(row_end: torch.Tensor) -> RowSegments:
   padded = np.zeros(chunks * SEGMENT_CHUNK, np.int32)
   padded[:n_pad] = ends
   lanes = row_lanes(padded.reshape(chunks, SEGMENT_CHUNK).max(axis=1))
-  starts = np.flatnonzero(np.diff(lanes, prepend=-1))
-  table, warp = [], 0
-  for i, lo in enumerate(starts):
-    hi = starts[i + 1] if i + 1 < len(starts) else chunks
-    r0, r1 = int(lo) * SEGMENT_CHUNK, min(int(hi) * SEGMENT_CHUNK, n_pad)
-    g = int(lanes[lo])
-    table.append((r0, r1, g, warp))
-    warp += -(-(r1 - r0) * g // 32)
-  return RowSegments(torch.tensor(table, dtype=torch.int32,
-                                  device=row_end.device).reshape(-1, 4), warp)
+  table, num_warps = _table(lanes, n_pad, row_end.device)
+  tiled, tiled_warps = _table(np.maximum(lanes, TILED_MIN_LANES), n_pad,
+                              row_end.device)
+  empty = np.flatnonzero(ends == 0)
+  return RowSegments(table, num_warps, tiled, tiled_warps,
+                     filled_rows=int(empty[0]) if empty.size else n_pad,
+                     short_rows=bool((lanes == 1).all()))
 
 
 def plain_process(process_op: str):
@@ -190,9 +221,11 @@ def takes(msg: torch.Tensor, vals: torch.Tensor, process_op: str,
           and (dprop.ndim == 1 or dprop.shape[1] in (1, q)))
 
 
-def _check(cond: bool, what: str) -> None:
+def _check(cond: bool, what: str, *args) -> None:
+  """Raise unless ``cond``; ``what`` is formatted with ``args`` only then
+  (the wrapper runs once a superstep, and its host time counts)."""
   if not cond:
-    raise ValueError(f"ell_spmv: {what}")
+    raise ValueError("ell_spmv: " + what.format(*args))
 
 
 def _aligned(t: torch.Tensor, nbytes: int) -> bool:
@@ -230,8 +263,8 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     block_queries: query tile, 1..8 (default: the largest divisor of Q that
       is at most 8).
   """
-  _check(process_op in PROCESS_FORMS, f"unknown process_op {process_op!r}")
-  _check(reduce_kind in _REDUCE_CODE, f"reduce_kind {reduce_kind!r}")
+  _check(process_op in PROCESS_FORMS, "unknown process_op {!r}", process_op)
+  _check(reduce_kind in _REDUCE_CODE, "reduce_kind {!r}", reduce_kind)
   _check(cols.ndim == 2 and vals.shape == cols.shape
          and mask.shape == cols.shape, "cols, vals, mask must be [n_pad, W]")
   _check(msg.ndim == 2 and active.shape == (msg.shape[0],),
@@ -241,43 +274,44 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
   if process_op in DST_FORMS:
     _check(dprop is not None and dprop.ndim == 2
            and dprop.shape[0] == n_pad and dprop.shape[1] in (1, q),
-           f"{process_op} needs dprop [n_pad, 1] or [n_pad, Q]")
-    _check(dprop.dtype == msg.dtype,
-           f"dprop must have msg's dtype {msg.dtype}")
+           "{} needs dprop [n_pad, 1] or [n_pad, Q]", process_op)
+    _check(dprop.dtype == msg.dtype, "dprop must have msg's dtype {}",
+           msg.dtype)
   else:
-    _check(dprop is None, f"{process_op} reads no dprop")
+    _check(dprop is None, "{} reads no dprop", process_op)
   tensors = (cols, vals, mask, msg, active) + (
       () if dprop is None else (dprop,))
-  if all(t.device.type == "cpu" for t in tensors):
+  if not any(t.is_cuda for t in tensors):
     if dprop is None:
       dprop = torch.zeros((n_pad, 1), dtype=msg.dtype)
     return ell_spmv_ref(cols, vals, mask, msg, active, dprop,
                         process=plain_process(process_op),
                         reduce_kind=reduce_kind)
 
-  dev = cols.device
-  _check(dev.type == "cuda" and all(t.device == dev for t in tensors),
+  index = cols.get_device()
+  _check(all(t.is_cuda and t.get_device() == index for t in tensors),
          "all tensors must lie on one CUDA device")
   _check(cols.dtype == torch.int32, "cols must be int32")
   _check(mask.dtype == torch.bool and active.dtype == torch.bool,
          "mask and active must be bool")
-  _check(msg.dtype in _DTYPE_CODE, f"msg dtype {msg.dtype} not supported")
+  _check(msg.dtype in _DTYPE_CODE, "msg dtype {} not supported", msg.dtype)
   _check(process_op not in EDGE_OPS or vals.dtype == msg.dtype,
-         f"{process_op} needs vals in msg's dtype {msg.dtype}")
+         "{} needs vals in msg's dtype {}", process_op, msg.dtype)
   _check(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")
   warps = DEFAULT_BLOCK_ROWS if block_rows is None else int(block_rows)
-  _check(1 <= warps <= 32, f"block_rows={warps} must be in 1..32")
-  tile = block_queries or _pick_query_tile(q)
-  tile = min(int(tile), q)
-  _check(1 <= tile <= MAX_QUERY_TILE,
-         f"block_queries={tile} must be in 1..{MAX_QUERY_TILE}")
+  _check(1 <= warps <= 32, "block_rows={} must be in 1..32", warps)
+  tile = 1 if q == 1 else min(int(block_queries or _pick_query_tile(q)), q)
+  _check(1 <= tile <= MAX_QUERY_TILE, "block_queries={} must be in 1..{}",
+         tile, MAX_QUERY_TILE)
   if row_end is None or mask_prefix is None:
     ends, mask_prefix = ell_extent(mask)
-    row_end = torch.from_numpy(ends).to(dev)
+    row_end = torch.from_numpy(ends).to(cols.device)
   if segments is None:
     segments = row_segments(row_end)
+  table, num_warps = ((segments.table, segments.num_warps) if tile == 1
+                      else (segments.tiled_table, segments.tiled_num_warps))
   _check(row_end.shape == (n_pad,) and row_end.dtype == torch.int32
-         and row_end.device == dev and segments.table.device == dev,
+         and row_end.get_device() == index and table.get_device() == index,
          "row_end must be int32[n_pad] and segments its table, on the "
          "mask's device")
 
@@ -290,20 +324,20 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     flags |= _VEC_MSG
   if _aligned(active, 16):
     flags |= _VEC_ACTIVE
+  if tile == 1 and segments.short_rows:
+    flags |= _SHORT_ROWS
   lib = LIBRARY.load()
-  y = torch.empty((n_pad, q), dtype=msg.dtype, device=dev)
-  recv = torch.empty((n_pad,), dtype=torch.int8, device=dev)
-  with torch.cuda.device(dev):
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.graphmat_ell_spmv(
-        cols.data_ptr(), vals.data_ptr(), mask.data_ptr(), msg.data_ptr(),
-        active.data_ptr(), None if dprop is None else dprop.data_ptr(),
-        row_end.data_ptr(), segments.table.data_ptr(), y.data_ptr(),
-        recv.data_ptr(), _sync_words(dev, stream).data_ptr(), msg.shape[0],
-        segments.table.shape[0], segments.num_warps, width, q, tile,
-        1 if dprop is None else dprop.shape[1], flags, warps,
-        _DTYPE_CODE[msg.dtype], _REDUCE_CODE[reduce_kind],
-        _OP_CODE[process_op], stream)
+  y = msg.new_empty((n_pad, q))
+  recv = cols.new_empty((n_pad,), dtype=torch.int8)
+  stream = torch._C._cuda_getCurrentRawStream(index)
+  rc = lib.graphmat_ell_spmv(
+      cols.data_ptr(), vals.data_ptr(), mask.data_ptr(), msg.data_ptr(),
+      active.data_ptr(), None if dprop is None else dprop.data_ptr(),
+      row_end.data_ptr(), table.data_ptr(), y.data_ptr(), recv.data_ptr(),
+      _sync_words(index, stream).data_ptr(), msg.shape[0], table.shape[0],
+      num_warps, width, q, tile, 1 if dprop is None else dprop.shape[1],
+      flags, warps, segments.filled_rows, _DTYPE_CODE[msg.dtype],
+      _REDUCE_CODE[reduce_kind], _OP_CODE[process_op], index, stream)
   LIBRARY.check(rc, "ell_spmv")
   launches.add(config_key(q, msg.dtype, reduce_kind, process_op))
   return y, recv

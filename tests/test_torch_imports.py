@@ -1,6 +1,6 @@
-"""Import guard: the port, its examples (``examples/*_torch.py``) and
-chip_smoke.py import nothing of JAX or of the JAX package, and the port's
-entry points do not fall back to the CPU."""
+"""Import guard: the port, its examples (``examples/*_torch.py``), its
+tools (``tools/*.py``) and chip_smoke.py import nothing of JAX or of the
+JAX package, and the port's entry points do not fall back to the CPU."""
 
 import ast
 import pathlib
@@ -19,7 +19,7 @@ EXAMPLES = ("quickstart_torch", "graph_analytics_suite_torch",
 BENCH_FILES = sorted((ROOT / "benchmarks").glob("*_torch.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"] + \
-    BENCH_FILES
+    BENCH_FILES + sorted((ROOT / "tools").glob("*.py"))
 BENCH_ENTRY_POINTS = (
     ("bench_algorithms_torch", "main", (8,)),
     ("bench_algorithms_torch", "multi_query", (8,)),

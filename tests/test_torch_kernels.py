@@ -21,6 +21,8 @@ in ``tests/test_kernels.py``), since the sums run in different orders.
 """
 
 import gc
+import importlib.util
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +52,8 @@ from repro_torch.core.vertex_program import (  # noqa: E402
     PROCESS_FORMS, GraphProgram)
 from repro_torch.kernels import ell_spmv as kmod  # noqa: E402
 from repro_torch.kernels.ref import ell_spmv_ref  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 # The reference sweep's semirings; the callables work on both frameworks.
 PROCS = {
@@ -230,18 +234,20 @@ def test_layout_row_end_and_prefix(name):
       [0, len(rows), int(kmod.row_lanes(max(row_end))), 0]]
 
 
-def _check_segments(row_end, n_pad):
+def _check_segments(row_end, n_pad, tiled=False):
   segments = kmod.row_segments(row_end)
-  segs = segments.table.tolist()
+  table = segments.tiled_table if tiled else segments.table
+  segs = table.tolist()
   assert segs[0][0] == 0 and segs[-1][1] == n_pad
   warp = 0
   for (r0, r1, lanes, w0), nxt in zip(segs, segs[1:] + [None]):
-    assert w0 == warp and lanes in (2, 4, 8, 16, 32)
+    assert w0 == warp and lanes in (1, 2, 4, 8, 16, 32)
+    assert not tiled or lanes >= kmod.TILED_MIN_LANES
     assert nxt is None or nxt[0] == r1
     # Every row of the segment fits its lanes at 4 slots a lane.
     assert int(row_end[r0:r1].max()) <= kmod.SLOTS_PER_LANE * lanes
     warp += -(-(r1 - r0) * lanes // 32)
-  assert segments.num_warps == warp
+  assert (segments.tiled_num_warps if tiled else segments.num_warps) == warp
   return segs
 
 
@@ -283,6 +289,153 @@ def test_backend_keeps_segments_per_graph(rmat_small):
   del g
   gc.collect()
   assert key not in backend._segments
+
+
+def _old_row_lanes(length: int) -> int:
+  """The lanes of a row before the one-lane class: at least 2."""
+  need = -(-length // kmod.SLOTS_PER_LANE)
+  return next(g for g in (2, 4, 8, 16, 32) if need <= g or g == 32)
+
+
+@pytest.mark.parametrize("extent", [0, 1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 33,
+                                    64, 65, 128, 129, 152, 300])
+def test_row_lanes_one_lane_up_to_four_slots(extent):
+  lanes = int(kmod.row_lanes(extent))
+  if extent <= kmod.SLOTS_PER_LANE:
+    assert lanes == 1
+  else:
+    assert lanes == _old_row_lanes(extent)
+  assert kmod.row_lanes(np.array([extent, extent])).tolist() == [lanes] * 2
+
+
+def _grid_edges(side: int):
+  """The examples' road grid (``grid_road_graph``, seed 0)."""
+  spec = importlib.util.spec_from_file_location(
+      "_example_graph_analytics_suite_torch",
+      ROOT / "examples" / "graph_analytics_suite_torch.py")
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod.grid_road_graph(side, seed=0)
+
+
+def _boundary_edges():
+  """In-degrees 6 for vertices 0-39 and 3 for 40-95: packed rows 32-63 form
+  one SEGMENT_CHUNK whose rows need 2 lanes (rows 32-39) and 1 lane (rows
+  40-63), so the chunk takes 2; rows 64-95 take 1."""
+  rng = np.random.default_rng(5)
+  n, src, dst = 96, [], []
+  for v in range(n):
+    k = 6 if v < 40 else 3
+    srcs = rng.choice(np.setdiff1d(np.arange(n), [v]), k, replace=False)
+    src += srcs.tolist()
+    dst += [v] * k
+  w = rng.uniform(0.1, 2.0, len(src)).astype(np.float32)
+  return n, np.array(src, np.int32), np.array(dst, np.int32), w
+
+
+SHORT_GRAPHS = {
+    "road32": lambda rmat: _grid_edges(32),
+    "rmat_small": lambda rmat: rmat,
+    "lane_boundary": lambda rmat: _boundary_edges(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHORT_GRAPHS))
+@pytest.mark.parametrize("tiled", [False, True], ids=["q1", "qtiled"])
+def test_row_segments_cover_each_row_once(rmat_small, name, tiled):
+  """Each packed row is served by exactly one lane group of one warp, as
+  the kernel maps warps to rows, and the warp count is the table's; the
+  query-tiled grid's table keeps two lanes where the other has one."""
+  n, src, dst, w = SHORT_GRAPHS[name](rmat_small)
+  g = TG.build_ell(src, dst, w, n=n, device="cpu")
+  segments = kmod.row_segments(g.row_end)
+  segs = _check_segments(g.row_end, g.n_pad, tiled)
+  served = np.zeros(g.n_pad, np.int64)
+  for r0, r1, lanes, w0 in segs:
+    for warp in range(w0, w0 + -(-(r1 - r0) * lanes // 32)):
+      lane = np.arange(32)
+      rows = r0 + (warp - w0) * (32 // lanes) + lane // lanes
+      first = lane % lanes == 0
+      np.add.at(served, rows[first & (rows < r1)], 1)
+  assert served.tolist() == [1] * g.n_pad
+  ends = g.row_end.numpy()
+  lanes_of = {r: s[2] for s in segs for r in range(s[0], s[1])}
+  one = 2 if tiled else 1  # the lanes of a row of at most 4 slots
+  assert segments.filled_rows == g.n_pad - int((ends == 0).sum())
+  if name == "road32":
+    # Rows of 2-4 slots: one segment of one lane a row, 32 rows a warp.
+    assert ends.max() == 4 and segs == [[0, g.n_pad, one, 0]]
+    assert segments.short_rows
+    assert warp_count(segments, tiled) == g.n_pad * one // 32
+  if name == "lane_boundary":
+    assert ends[:40].tolist() == [6] * 40 and ends[40:].tolist() == [3] * 56
+    assert [lanes_of[r] for r in (0, 39, 40, 63, 64, 95)] == [
+        2, 2, 2, 2, one, one]
+    assert segs == ([[0, 96, 2, 0]] if tiled
+                    else [[0, 64, 2, 0], [64, 96, 1, 4]])
+    assert not segments.short_rows
+  if name == "rmat_small":
+    # The degree-sorted tail of short rows gets the one-lane class.
+    assert lanes_of[g.n_pad - 1] == one and segs[0][2] > 2
+    assert not segments.short_rows
+
+
+def warp_count(segments, tiled: bool) -> int:
+  return segments.tiled_num_warps if tiled else segments.num_warps
+
+
+@pytest.mark.parametrize("name", sorted(SHORT_GRAPHS))
+@pytest.mark.parametrize("form", FORMS, ids=[f[0] for f in FORMS])
+@pytest.mark.parametrize("q", [1, 4])
+def test_short_rows_wrapper_matches_jax_kernel(rmat_small, name, form, q):
+  """The wrapper's plain path on the short-row graphs' ELL arrays, given
+  their extents and the backend's table, against the JAX kernel."""
+  op, kind, dtype, jproc = form
+  n, src, dst, w = SHORT_GRAPHS[name](rmat_small)
+  g = TG.build_ell(src, dst, w, n=n, device="cpu")
+  rng = np.random.default_rng(q + len(name))
+  cols, mask = g.cols.numpy(), g.mask.numpy()
+  vals = g.vals.numpy().astype(dtype)
+  msg = (rng.integers(0, 50, (n, q)) if dtype == np.int32
+         else rng.standard_normal((n, q))).astype(dtype)
+  act = rng.uniform(size=n) > 0.3
+  kw = {"block_queries": 2} if q > 1 else {}
+  yj, rj = ell_spmv_pallas(
+      *map(jnp.asarray, (cols, vals, mask, msg, act)),
+      jnp.zeros((g.n_pad, 1), dtype), process=jproc, reduce_kind=kind, **kw)
+  before = kmod.launches.total
+  yt, rt = kmod.ell_spmv(
+      *map(torch.from_numpy, (cols, vals, mask, msg, act)), process_op=op,
+      reduce_kind=kind, row_end=g.row_end, mask_prefix=g.mask_prefix,
+      segments=tbe.get_backend("cuda_ell").segments(g), **kw)
+  assert kmod.launches.total == before
+  np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+  _assert(yt, yj, kind)
+
+
+@pytest.mark.parametrize("name", sorted(SHORT_GRAPHS))
+@pytest.mark.parametrize("prog", sorted(PROGRAMS))
+def test_short_rows_cuda_ell_backend_matches_jax_pallas(rmat_small, name,
+                                                         prog):
+  """BFS, SSSP and PageRank supersteps through the backends, spill and
+  un-permute included, on the short-row graphs."""
+  n, src, dst, w = SHORT_GRAPHS[name](rmat_small)
+  jmake, tmake, dtype = PROGRAMS[prog]
+  jg = JG.build_ell(src, dst, w, n=n)
+  tg = TG.build_ell(src, dst, w, n=n, device="cpu")
+  rng = np.random.default_rng(len(name) + len(prog))
+  msg = (rng.integers(0, 30, n) if dtype == np.int32
+         else rng.uniform(0, 2, n)).astype(dtype)
+  act = rng.uniform(size=n) < 0.5
+  jy, jr = jspmv.spmv(jg, jnp.asarray(msg), jnp.asarray(act),
+                      jnp.asarray(msg), jmake(),
+                      backend=jbe.Plan(backend="pallas"))
+  prog_t = tmake()
+  ty, tr = tspmv.spmv(tg, torch.from_numpy(msg), torch.from_numpy(act),
+                      torch.from_numpy(msg), prog_t,
+                      backend=tbe.Plan(backend="cuda_ell"))
+  np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+  _assert(ty, jy, prog_t.reduce_kind)
 
 
 PLUS_DST, _ = PROCS["plus_dst"]
@@ -391,11 +544,37 @@ def test_dprop_only_for_forms_that_read_it(rmat_small):
                backend=tbe.Plan(backend="cuda_ell"))
 
 
-def test_kernel_matches_plain_on_card():
+def test_kernel_matches_plain_on_card(rmat_small):
   """The CUDA kernel itself; runs only where a card is present."""
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
   gen = torch.Generator(device="cuda").manual_seed(0)
+  # The short-row graphs with their own extents and table: the one-lane
+  # class (the road grid's plain launch, rmat_small's tail, the lane
+  # boundary inside a chunk), every form, Q = 1 and 8, every source active
+  # and 10% active.
+  for name in sorted(SHORT_GRAPHS):
+    n, src, dst, w = SHORT_GRAPHS[name](rmat_small)
+    g = TG.build_ell(src, dst, w, n=n, device="cuda")
+    ext = {"row_end": g.row_end, "mask_prefix": g.mask_prefix,
+           "segments": kmod.row_segments(g.row_end)}
+    for q, (op, kind, dtype, _) in [(q, f) for q in (1, 8) for f in FORMS]:
+      tdt = torch.int32 if dtype == np.int32 else torch.float32
+      vals = g.vals.to(tdt)
+      msg = (torch.rand((n, q), generator=gen, device="cuda") * 50).to(tdt)
+      for p_act in (2.0, 0.1):
+        act = torch.rand((n,), generator=gen, device="cuda") < p_act
+        y, r = kmod.ell_spmv(g.cols, vals, g.mask, msg, act, process_op=op,
+                             reduce_kind=kind, **ext)
+        yr, rr = ell_spmv_ref(
+            g.cols, vals, g.mask, msg, act,
+            torch.zeros((g.n_pad, 1), dtype=tdt, device="cuda"),
+            process=kmod.plain_process(op), reduce_kind=kind)
+        assert torch.equal(r, rr), (name, op, q, p_act)
+        if kind == "add" and tdt.is_floating_point:
+          torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
+        else:
+          assert torch.equal(y, yr), (name, op, q, p_act)
   for q, (op, kind, dtype, _) in [(q, f) for q in (1, 8) for f in FORMS]:
     tdt = torch.int32 if dtype == np.int32 else torch.float32
     cols = torch.randint(0, 300, (256, 40), generator=gen, device="cuda",
