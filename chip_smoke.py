@@ -8,25 +8,38 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. print the card (``nvidia-smi`` name and power limit) and build the CUDA
    kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc``, one
-   compiler per source, all at once;
+   compiler per source, all at once: the shipped ELL and scan libraries
+   and the ELL kernel's generated instances for the processes of
+   ``traced_programs()`` (per-edge functions written only as lambdas, each
+   traced by ``kernels/process_expr.py``), each instance's seconds and a
+   second load's cache hit;
 2. hold the ELL kernel against its plain PyTorch version on the card over a
    sweep of shapes, semirings (the destination-reading form too, with a
    [n_pad, 1] and a [n_pad, Q] property), dtypes, query widths, masks
    (random, degree-sorted prefix rows, empty and last-slot-only rows) and
-   frontiers (partial and every source active);
+   frontiers (partial and every source active); then every generated
+   instance against its plain version (the program's callable) over the
+   same kinds of case, float16 included;
 3. build an RMAT graph (Graph500 parameters, scale 20, edge factor 16,
    self-loops removed, symmetrized) as an ELL graph on the card, serve 32
    BFS queries through ``GraphQueryServer`` with ``Plan("cuda_ell")`` (by
    ``drain()`` and through a ``ServerDriver``), hold them against the plain
    torch ``Plan("ell")`` path, run single-query BFS, SSSP, PageRank and
    a destination-reading gradient sweep (one lane and eight) through the
-   kernel, and check that the kernel's launch counter rose; then run the
-   BFS, the SSSP and the 32 queries again with the kernel's calls recorded;
+   kernel, and check that the kernel's launch counter rose; the
+   lambda-only programs (widest path, its 8-source lane form, a damped
+   PageRank of 20 sweeps, an int32 ``where``, SSSP as ``e + m``) through
+   ``Plan("cuda_ell")`` against ``Plan("ell")``, each launching its
+   generated instance; then run the BFS, the SSSP and the 32 queries again
+   with the kernel's calls recorded;
 4. time the ELL kernel and its plain version with CUDA events on the
    recorded calls of BFS and SSSP (their frontiers, superstep by superstep)
    and with every source active for PageRank (in turns with
-   ``torch.sparse.mm``) and the gradient sweeps, and the kernel at four
-   frontiers (all, 10% and all but one source active);
+   ``torch.sparse.mm``) and the gradient sweeps, the generated instances
+   on their own programs' recorded calls, the ``e + m`` instance against
+   the shipped ``msg_plus_edge`` on the SSSP's recorded calls (the card's
+   time, in turns), and the kernel at four frontiers (all, 10% and all but
+   one source active);
 5. the paper's five algorithms and its Table 3: PageRank (20 sweeps), BFS
    and SSSP through ``Plan("cuda_ell")`` on the phase-3 graph against the
    native baselines on its edges (BFS and SSSP bitwise, PageRank at rtol
@@ -145,9 +158,13 @@ Phases, in order; any failure exits non-zero before the result line:
    ``cuda_ell`` and launch the kernel) for BFS, SSSP and PageRank (20
    sweeps), each against ``Plan("ell")``, ``Planner.autotune`` for BFS and
    PageRank at Q = 1, and the kernel's road-grid rows of the kernels line;
+   the lambda-only programs of phase 3 there (the lane widest path cut to
+   ``TRACED_ROAD_LANE_ITERS`` supersteps), their generated instances' rows
+   and ``e + m`` against ``msg_plus_edge``;
    at RMAT-18 (cut from 20: each example builds its own graph on the host)
-   the quickstart's SSSP declared (``process_op``: ``cuda_ell``) and as the
-   reference's lambda (``ell``), the suite's PageRank and BFS against
+   the quickstart's SSSP declared (``process_op``) and as the reference's
+   lambda (traced: it equals the declared form), both through structural
+   ``auto`` onto ``cuda_ell``, the suite's PageRank and BFS against
    ``algos/native``, the multi-query service's four sections (the
    fair-share split also at the example's RMAT-10, held to the
    reference's), the 4×2 distributed PageRank in eight gloo ranks sharing
@@ -173,7 +190,10 @@ to ``chiprun_out/chip_smoke.json``.
 
 Tolerances: ELL min/max reductions and int32 results must match bitwise
 (the same values are reduced, in any order; float forms round op by op, as
-the plain version does).  Float add reductions match
+the plain version does; a generated instance computes a float16 process
+in float32 and rounds after each op, as eager CUDA does).  The
+lambda-only programs: widest path (both forms), the int32 ``where`` and
+``e + m`` bitwise ``Plan("ell")``'s, the damped PageRank at rtol 1e-4.  Float add reductions match
 with ``rtol`` 1e-5 in float32 and 1e-2 in float16, ``atol`` = rtol times the
 largest magnitude of the plain result, because the kernel sums in another
 order than the plain version.  PageRank after 20 sweeps: rtol 1e-4; the
@@ -225,6 +245,8 @@ own assert).
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -309,12 +331,17 @@ def paired_ms(fn_a, fn_b, iters: int = 20, repeats: int = 5,
   return statistics.median(a), statistics.median(b)
 
 
-def device_busy(fn, top: int = 6) -> dict:
+def device_busy(fn, top: int = 6, pad_s: float = 0.05) -> dict:
   """Run ``fn`` once under ``torch.profiler`` (device activity only, so the
   host pays no tracing cost per operation): the union of the card's kernel
   intervals against the CUDA-event time of the call, and the kernels that
   took the most device time.  ``busy_ms`` is None where the profiler
-  recorded no device event."""
+  recorded no device event.  The window is padded by ``pad_s`` of host
+  sleep on both sides of the call: the profiler keeps only device events
+  that fall inside its window on the host's clock, and late in a long
+  process a window of a few short launches came back empty (the road
+  grid's PageRank row, 20 launches of 0.018 ms, in every whole run of
+  PR 22) while longer windows in the same phase lost a share of theirs."""
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
@@ -322,10 +349,12 @@ def device_busy(fn, top: int = 6) -> dict:
   end = torch.cuda.Event(enable_timing=True)
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    time.sleep(pad_s)
     start.record()
     fn()
     end.record()
     end.synchronize()
+    time.sleep(pad_s)
   wall_ms = start.elapsed_time(end)
   kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
   spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -373,6 +402,49 @@ SEMIRINGS = {  # name -> (process_op, reduce)
     "min_dst": ("edge_minus_msg_dst_times_msg", "min"),
 }
 DST_OP = "edge_minus_msg_dst_times_msg"
+
+
+@functools.lru_cache(maxsize=None)
+def traced_programs() -> dict:
+  """name -> (process_message, reduce, dtypes of phase 2's sweep): per-edge
+  functions written only as lambdas, none among the five shipped forms, so
+  that each runs a kernel instance generated from its trace.  ``e + m`` is
+  ``msg_plus_edge`` with its operands swapped (the trace is compared node
+  for node, with no algebra), timed against the shipped instance; ``ops``
+  reaches the comparisons, ``where``, ``sqrt``, ``abs``, a division by a
+  constant, ``exp`` and ``neg`` (phase 2 only).  Made once, so that each
+  keeps its cached trace."""
+  import torch
+  f32, f16, i32 = torch.float32, torch.float16, torch.int32
+  return {
+      "widest": (lambda m, e, d: torch.minimum(m, e), "max", (f32,)),
+      "damped_pr": (lambda m, e, d: 0.85 * m, "add", (f32, f16)),
+      "int_where": (lambda m, e, d: torch.where(m < 1000, m * 2 + 1, m),
+                    "min", (i32,)),
+      "sssp_e_plus_m": (lambda m, e, d: e + m, "min", (f32,)),
+      "ops": (lambda m, e, d: torch.where(
+          m > e, torch.sqrt(torch.abs(m)) / 3, torch.exp(-e) * m), "max",
+              (f32, f16)),
+  }
+
+
+def traced_expr(name: str, dtype, lane: bool):
+  """The traced process of ``traced_programs()[name]`` at ``dtype``, in the
+  lane form (``[n, Q]`` messages) or the scalar one; never a shipped
+  form."""
+  from repro_torch.kernels import process_expr
+  fn = traced_programs()[name][0]
+  expr = process_expr.trace(fn, dtype, lane=lane, reads_dst=False)
+  if not isinstance(expr, process_expr.ProcessExpr) or expr.shipped:
+    raise AssertionError(f"traced program {name} at {dtype}: {expr}")
+  return expr
+
+
+def traced_libraries(ell_mod) -> dict:
+  """(name, dtype) -> the generated library of each traced program."""
+  return {(name, dt): ell_mod.library_for(traced_expr(name, dt, False), red)
+          for name, (_, red, dtypes) in traced_programs().items()
+          for dt in dtypes}
 
 
 def compare(y, yr, r, rr, reduce_kind: str, what: str) -> float:
@@ -580,7 +652,63 @@ def phase_kernel_sweep(ell_mod, ref_mod) -> dict:
     raise AssertionError("all-inactive case: expected identity rows")
   log(f"phase 2: kernel == plain on {len(cases) + 1} cases "
       f"(max abs err {max_err:.3g})")
-  return {"cases": len(cases) + 1, "max_abs_err": max_err}
+  traced = traced_sweep(ell_mod, ref_mod, gen)
+  return {"cases": len(cases) + 1, "max_abs_err": max_err, "traced": traced}
+
+
+def traced_sweep(ell_mod, ref_mod, gen) -> dict:
+  """Every generated instance against its plain version (the program's
+  callable on the card) over the sweep's case set: random, degree-sorted
+  prefix and empty / last-slot-only rows at 152 slots; the short-row masks
+  (sorted, unsorted, holed, a lane-class boundary) at 8 slots, every source
+  and 10% active; the scalar slot loads at 6; NaN among the messages and
+  edge values; Q = 1 and 8 each."""
+  import torch
+  cases = []
+  for q in (1, 8):
+    for mask_kind in ("random", "sorted", "edge_rows"):
+      for p_act in (0.8, 2.0):
+        cases.append(((600, 152, 900, q), {"mask": mask_kind,
+                                           "p_act": p_act}))
+    for mask_kind in ("short", "short_unsorted", "short_holes",
+                      "lane_boundary"):
+      for p_act in (2.0, 0.1):
+        cases.append(((300, 8, 310, q), {"mask": mask_kind, "p_act": p_act}))
+    cases.append(((256, 24, 300, q), {"nan": True}))
+  for mask_kind in ("short", "short_holes"):
+    cases.append(((300, 6, 310, 1), {"mask": mask_kind, "p_act": 0.5}))
+  count, max_err, per = 0, 0.0, {}
+  for name, (_, red, dtypes) in traced_programs().items():
+    for dtype in dtypes:
+      err = 0.0
+      for shape, kw in cases:
+        n_pad, width, n_src, q = shape
+        kw = dict(kw)
+        if kw.get("nan") and dtype == torch.int32:
+          continue
+        cols, vals, mask, msg, act = random_ell(
+            gen, n_pad, width, n_src, q, dtype, p_act=kw.get("p_act", 0.8),
+            mask_kind=kw.get("mask", "random"))
+        if kw.get("nan"):
+          msg[torch.rand(msg.shape, generator=gen, device="cuda") < 0.01] = (
+              float("nan"))
+          vals[torch.rand(vals.shape, generator=gen, device="cuda") < 0.01] = (
+              float("nan"))
+        expr = traced_expr(name, dtype, lane=q > 1)
+        y, r = ell_mod.ell_spmv(cols, vals, mask, msg, act, process=expr,
+                                reduce_kind=red)
+        dprop = torch.zeros((n_pad, 1), dtype=dtype, device="cuda")
+        yr, rr = ref_mod.ell_spmv_ref(cols, vals, mask, msg, act, dprop,
+                                      process=expr.plain, reduce_kind=red)
+        torch.cuda.synchronize()
+        err = max(err, compare(y, yr, r, rr, red,
+                               f"traced {name} {dtype} {shape} {kw}"))
+        count += 1
+      per[f"{name},{dtype}"] = err
+      max_err = max(max_err, err)
+  log(f"phase 2: generated instances == plain on {count} cases "
+      f"(max abs err {max_err:.3g}; by program {json.dumps(per)})")
+  return {"cases": count, "max_abs_err": max_err, "by_program": per}
 
 
 # ---------------------------------------------------------------------------
@@ -787,6 +915,12 @@ def phase_slice(scale: int, num_queries: int, ell_mod):
            "launches_serve": launches_serve,
            "single_bfs_s": t_bfs}
 
+  # Programs written only as lambdas: their traced processes run generated
+  # instances of the kernel (the shipped forms' counts were read above).
+  traced, traced_launches, traced_calls = traced_runs(
+      "phase 3", g, out_deg, ell_mod, lane_every=4)
+  stats.update(traced=traced, traced_launches=traced_launches)
+
   # The kernel's calls on this run's data, for phase 4 to time: the BFS and
   # SSSP again, and the 32 queries again through drain().  These launches
   # come after the main path's counts were read.
@@ -800,10 +934,146 @@ def phase_slice(scale: int, num_queries: int, ell_mod):
               "sssp,Q=1": record_calls(
                   lambda: sssp(g, root, n, backend=kernel)),
               "bfs,Q=8": record_calls(serve_again)}
+  recorded.update({f"traced:{k}": v for k, v in traced_calls.items()})
   stats["recorded_calls"] = {k: len(v) for k, v in recorded.items()}
   log(f"phase 3: recorded kernel calls {stats['recorded_calls']}")
   edges = {"src": src, "dst": dst, "w": w, "root": root, "sources": sources}
   return stats, g, recorded, edges
+
+
+TRACED_PR_ITERS = 20
+TRACED_SOURCES = 8  # the lane widest path's sources
+# The lane widest path on the road grid runs this many supersteps (3,001
+# to converge; Plan("ell") took 20.8 s of them, run AX, PR 23).
+TRACED_ROAD_LANE_ITERS = 512
+
+
+def traced_graph_programs(g, out_deg, lane_iters=None) -> dict:
+  """The lambda-only programs of ``traced_programs()`` as vertex programs on
+  graph ``g``: name -> (program, lane, run(plan) -> (result,
+  supersteps)).  Widest path (max of min) and its 8-source lane form from
+  vertex 0 and every n/8-th vertex (``lane_iters`` supersteps, or to
+  convergence), the damped PageRank (20 sweeps, every vertex active), the
+  int32 ``where`` from vertex 0 (min), and SSSP as ``e + m`` from vertex
+  0."""
+  import torch
+  from repro_torch.core.engine import (run_batched, run_fixed_iters,
+                                       run_graph_program)
+  from repro_torch.core.vertex_program import GraphProgram, lanewise_activate
+  fns = traced_programs()
+  n, dev = g.n, out_deg.device
+  neg_inf, inf = float("-inf"), float("inf")
+  widest = GraphProgram(
+      process_message=fns["widest"][0], reduce_kind="max",
+      apply=torch.maximum, needs_recv=False, inert_message=neg_inf,
+      lanewise=True, process_reads_dst=False, name="widest_path")
+  widest_q = dataclasses.replace(widest, activate=lanewise_activate,
+                                 name="widest_path_lanes")
+  deg = out_deg.clamp(min=1.0)
+  damped = GraphProgram(
+      process_message=fns["damped_pr"][0], reduce_kind="add",
+      send_message=lambda r: r / deg, apply=lambda red, old: 0.15 + red,
+      process_reads_dst=False, name="damped_pagerank")
+  int_where = GraphProgram(
+      process_message=fns["int_where"][0], reduce_kind="min",
+      apply=torch.minimum, process_reads_dst=False, name="int_where")
+  e_plus_m = GraphProgram(
+      process_message=fns["sssp_e_plus_m"][0], reduce_kind="min",
+      apply=torch.minimum, process_reads_dst=False, name="sssp_e_plus_m")
+  sources = torch.arange(TRACED_SOURCES, device=dev) * (n // TRACED_SOURCES)
+
+  def seeded(fill, value, dtype, q=None):
+    shape = (n,) if q is None else (n, q)
+    prop = torch.full(shape, fill, dtype=dtype, device=dev)
+    active = torch.zeros(shape, dtype=torch.bool, device=dev)
+    if q is None:
+      prop[0], active[0] = value, True
+    else:
+      lanes = torch.arange(q, device=dev)
+      prop[sources, lanes], active[sources, lanes] = value, True
+    return prop, active
+
+  def single(prog, fill, value, dtype):
+    def run(plan):
+      st = run_graph_program(g, prog, *seeded(fill, value, dtype),
+                             backend=plan)
+      return st.prop, int(st.iteration)
+    return run
+
+  def lanes(plan):
+    st = run_batched(g, widest_q, *seeded(0.0, inf, torch.float32,
+                                          TRACED_SOURCES), backend=plan,
+                     **({} if lane_iters is None
+                        else {"max_iters": lane_iters}))
+    return st.prop, int(st.iteration)
+
+  def pagerank(plan):
+    every = torch.ones((n,), dtype=torch.bool, device=dev)
+    r0 = torch.ones((n,), dtype=torch.float32, device=dev)
+    st = run_fixed_iters(g, damped, r0, every, TRACED_PR_ITERS, backend=plan)
+    return st.prop, TRACED_PR_ITERS
+
+  return {
+      "widest": (widest, False, single(widest, 0.0, inf, torch.float32)),
+      "widest_q8": (widest_q, True, lanes),
+      "damped_pr": (damped, False, pagerank),
+      "int_where": (int_where, False, single(int_where, 2**31 - 1, 0,
+                                             torch.int32)),
+      "sssp_e_plus_m": (e_plus_m, False, single(e_plus_m, inf, 0.0,
+                                                torch.float32)),
+  }
+
+
+def traced_runs(phase: str, g, out_deg, ell_mod, every: int = 1,
+                lane_every: int = 1, lane_iters=None) -> tuple:
+  """Each lambda-only program through ``Plan("cuda_ell")`` and
+  ``Plan("ell")`` on graph ``g``: min, max and int32 results bitwise, the
+  damped PageRank within rtol 1e-4 after its sweeps; each must launch the
+  kernel (counted from 0 just before its kernel run, read just after).
+  Returns the record, the launches by counter key and, per program, every
+  ``every``-th kernel call (``lane_every``-th of the lane program) of a
+  first run, which also warms up (for the kernels line)."""
+  import torch
+  from repro_torch.core.backends import Plan
+  programs = traced_graph_programs(g, out_deg, lane_iters)
+  kernel, plain = Plan("cuda_ell"), Plan("ell")
+  out, launches, recorded = {}, {}, {}
+  for name, (prog, lane, run) in programs.items():
+    recorded[name] = record_calls(lambda: run(kernel),
+                                  every=lane_every if lane else every)
+    ell_mod.launches.reset()
+    (got, steps), sec = timed(lambda: run(kernel))
+    counts = dict(ell_mod.launches.by_config)
+    if not counts or any(k.split("/")[-1] != counts_name(name, lane)
+                         for k in counts):
+      raise AssertionError(f"{phase}: traced {name} launched {counts}")
+    for k, v in counts.items():
+      launches[k] = launches.get(k, 0) + v
+    (want, steps_p), sec_p = timed(lambda: run(plain))
+    if name == "damped_pr":
+      torch.testing.assert_close(got, want, rtol=1e-4, atol=0.0)
+    elif not torch.equal(got, want) or steps != steps_p:
+      raise AssertionError(f"{phase}: traced {name}: cuda_ell != Plan('ell')")
+    if not bool(torch.isfinite(got.float()).any()):
+      raise AssertionError(f"{phase}: traced {name}: no finite value")
+    err = float((got.double() - want.double()).abs().nan_to_num().max())
+    out[name] = {"launches": counts, "supersteps": steps, "seconds": sec,
+                 "plain_seconds": sec_p, "max_abs_err": err}
+    log(f"{phase}: traced {name} ({prog.name}): {steps} supersteps, "
+        f"launches {counts}, cuda_ell {sec:.3f} s, Plan('ell') {sec_p:.3f} "
+        "s; " + (f"max abs err {err:.3g} at rtol 1e-4"
+                 if name == "damped_pr" else "equal bitwise"))
+    del got, want
+  torch.cuda.empty_cache()
+  return out, launches, recorded
+
+
+def counts_name(name: str, lane: bool) -> str:
+  """The launch counter's instance name of a traced program."""
+  import torch
+  base = "widest" if name == "widest_q8" else name
+  dtype = torch.int32 if base == "int_where" else torch.float32
+  return traced_expr(base, dtype, lane).name
 
 
 def record_calls(fn, every: int = 1) -> list:
@@ -833,18 +1103,21 @@ def record_calls(fn, every: int = 1) -> list:
 
 
 def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
-             op: str, red: str, dtype, q: int, kd, replaces: str, calls,
-             launches: dict):
+             op, red: str, dtype, q: int, kd, replaces: str, calls,
+             launches: dict, library_scale=None):
   """One row of the kernels line: the ELL kernel on graph ``g`` held
   against its plain version on ``calls`` (``(msg, active)`` pairs; None:
   one call of random messages with every source active, as each PageRank
   and gradient sweep runs), timed with CUDA events beside the plain version
-  (and ``torch.sparse.mm`` for PageRank's form), with its byte bound.
-  ``csr`` memoizes the graph's CSR matrix for ``torch.sparse.mm``.
+  (and ``torch.sparse.mm`` for PageRank's form, or for a traced process
+  ``library_scale * m`` summed), with its byte bound.  ``op`` is a shipped
+  form's name or a traced process (a generated instance unless it equals a
+  form).  ``csr`` memoizes the graph's CSR matrices for ``torch.sparse.mm``.
   Returns the row and its record: the all-slots bound, the kernel's own
   time on the card (``torch.profiler``'s device events: the events' time
-  also holds the host's pace of issuing calls) and the bound's share of
-  each."""
+  also holds the host's pace of issuing calls), the device events the
+  profiler saw with and without padding its window (see
+  :func:`device_busy`) and the bound's share of each time."""
   import torch
   n, n_pad, width = g.n, g.n_pad, g.width
   active = torch.ones((n,), dtype=torch.bool, device="cuda")
@@ -863,15 +1136,17 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
            else torch.rand((n_pad, kd), generator=gen, device="cuda"))
   dp = (torch.zeros((n_pad, 1), dtype=dtype, device="cuda")
         if dprop is None else dprop)
+  traced = not isinstance(op, str)
+  form = {"process": op} if traced else {"process_op": op}
+  process = op.plain if traced else ell_mod.plain_process(op)
 
   def kernel(m, a):
-    return ell_mod.ell_spmv(g.cols, g.vals, g.mask, m, a, process_op=op,
+    return ell_mod.ell_spmv(g.cols, g.vals, g.mask, m, a, **form,
                             reduce_kind=red, dprop=dprop, **ext)
 
   def plain(m, a):
     return ref_mod.ell_spmv_ref(g.cols, g.vals, g.mask, m, a, dp,
-                                process=ell_mod.plain_process(op),
-                                reduce_kind=red)
+                                process=process, reduce_kind=red)
 
   def run_all(fn):
     def run():
@@ -887,16 +1162,22 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
   del yr, rr
   plain_ms = cuda_ms(run_all(plain), iters=3 if random_calls else 1,
                      warmup=0) / len(calls)
-  # At least 20 launches in the profiler's window, as the events time them.
-  reps = max(1, 20 // len(calls))
+  # At least 128 launches in the profiler's padded window; beside it, for
+  # the record, the window of PR 22 (20 launches, unpadded).
+  reps, old_reps = max(1, -(-128 // len(calls))), max(1, 20 // len(calls))
+  window = reps * len(calls)
+  unpadded = device_busy(
+      lambda: [run_all(kernel)() for _ in range(old_reps)], pad_s=0.0)
   busy = device_busy(lambda: [run_all(kernel)() for _ in range(reps)])
+  # A launch's time over the kernels the profiler saw (a window may miss a
+  # few; the record keeps both counts).
   device_ms = (None if busy["busy_ms"] is None
-               else busy["busy_ms"] / (reps * len(calls)))
+               else busy["busy_ms"] / busy["kernels"])
   size = calls[0][0].element_size()
-  edge = op in ell_mod.EDGE_OPS
+  edge = op.reads_edge if traced else op in ell_mod.EDGE_OPS
   # Bytes the work needs, whatever implements it, a launch on average:
-  # cols of the valid slots, vals for the edge forms of the valid slots
-  # whose source is active (no other is needed), one row
+  # cols of the valid slots, vals for a process that reads the edge, of the
+  # valid slots whose source is active (no other is needed), one row
   # extent per packed row, the active sources' messages, active and dprop
   # once, y and recv once.
   active_msgs = sum(int(a.sum()) for _, a in calls) / len(calls)
@@ -911,10 +1192,12 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
   full = (n_pad * width * (9 if edge else 5) + n * q * size + n
           + n_pad * q * size + n_pad)
   library_ms = None
-  if op == "msg":
+  scale = 1.0 if op == "msg" else library_scale
+  if scale is not None:
     # torch.sparse.mm on the same matrix as CSR: plus_times over the
-    # 0/1 pattern (PageRank's process passes the message through).
-    if "csr" not in csr:
+    # pattern, each value ``scale`` (PageRank's form passes the message
+    # through; the damped one scales it).
+    if scale not in csr:
       # The packed ELL matrix as CSR, columns sorted within each row.
       rows, slots = g.mask.nonzero(as_tuple=True)
       src_ids = g.cols[rows, slots].long()
@@ -922,46 +1205,132 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
       rows, slots, src_ids = rows[order], slots[order], src_ids[order]
       crow = torch.zeros(n_pad + 1, dtype=torch.int64, device="cuda")
       crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n_pad), 0)
-      ones = torch.ones(src_ids.shape, dtype=torch.float32, device="cuda")
-      csr["csr"] = torch.sparse_csr_tensor(crow, src_ids, ones,
+      vals = torch.full(src_ids.shape, scale, dtype=torch.float32,
+                        device="cuda")
+      csr[scale] = torch.sparse_csr_tensor(crow, src_ids, vals,
                                            size=(n_pad, n))
       del rows, slots, src_ids, order
     m, a = calls[0]
     x = torch.where(a[:, None], m, 0.0)
-    y_lib = torch.sparse.mm(csr["csr"], x)
+    y_lib = torch.sparse.mm(csr[scale], x)
     torch.testing.assert_close(y_lib, y, rtol=1e-4, atol=1e-4 * float(
         y.abs().max()))
     # Timed in turns with the kernel, so that both see the same card.
     kernel_ms, library_ms = paired_ms(run_all(kernel),
-                                      lambda: torch.sparse.mm(csr["csr"], x))
+                                      lambda: torch.sparse.mm(csr[scale], x))
   else:
     kernel_ms = cuda_ms(run_all(kernel), iters=max(1, 20 // len(calls)),
                         repeats=5) / len(calls)
   del y, r
+  generated = traced and op.shipped is None
   entry = {
       "name": name, "route": "cuda",
-      "source": "src/repro_torch/kernels/csrc/ell_spmv.cu",
+      "source": ("src/repro_torch/kernels/csrc/ell_spmv_body.cuh"
+                 if generated else "src/repro_torch/kernels/csrc/ell_spmv.cu"),
       "replaces": replaces,
-      "launches": int(launches.get(ell_mod.config_key(q, dtype, red, op), 0)),
+      "launches": int(launches.get(ell_mod.config_key(
+          q, dtype, red, op.name if traced else op), 0)),
       "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
       "bound_ms": need / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
       "library_ms": library_ms}
   record = {"ell_array_bound_ms": full / H100_BYTES_PER_S * 1e3,
-            "device_ms": device_ms,
+            "device_ms": device_ms, "window_launches": window,
+            "device_events": busy["kernels"],
+            "unpadded_window_launches": old_reps * len(calls),
+            "device_events_unpadded": unpadded["kernels"],
             "bound_share": entry["bound_ms"] / kernel_ms,
             "device_bound_share": (None if device_ms is None
                                    else entry["bound_ms"] / device_ms)}
   log(f"{phase}: {name}: kernel {kernel_ms:.4f} ms a launch over "
       f"{len(calls)} call(s) (bound share {record['bound_share']:.3f}), "
       f"on the card {device_ms} ms (share "
-      f"{record['device_bound_share']}), plain {plain_ms:.3f} ms, bound "
+      f"{record['device_bound_share']}; {busy['kernels']} device events of "
+      f"{window} launches; unpadded, {unpadded['kernels']} of "
+      f"{old_reps * len(calls)}), "
+      f"plain {plain_ms:.3f} ms, bound "
       f"{entry['bound_ms']:.4f} ms, ELL-array bound "
       f"{record['ell_array_bound_ms']:.4f} ms, library {library_ms}")
   torch.cuda.empty_cache()
   return entry, record
 
 
-def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
+def paired_device_ms(calls, fns: dict, turns: int = 2) -> dict:
+  """The card's time a call of each function in ``fns`` (name -> fn(m,
+  a)) over ``calls``, by ``torch.profiler``, in turns (a, b, b, a, ...):
+  the mean of ``turns`` windows each."""
+  order = list(fns) + list(fns)[::-1]
+  got = {k: [] for k in fns}
+  reps = max(1, -(-128 // len(calls)))
+  for _ in range(turns // 2 if turns > 1 else 1):
+    for k in order:
+      busy = device_busy(lambda: [fns[k](m, a) for _ in range(reps)
+                                  for m, a in calls])
+      if busy["busy_ms"] is None:
+        raise AssertionError(f"no device events timing {k}")
+      got[k].append(busy["busy_ms"] / busy["kernels"])
+  return {k: sum(v) / len(v) for k, v in got.items()} | {
+      "turns": {k: v for k, v in got.items()}}
+
+
+def traced_rows(phase: str, g, ell_mod, ref_mod, gen, csr: dict,
+                launches: dict, recorded: dict, sssp_calls: list,
+                tag: str = "") -> tuple:
+  """The kernels line's rows of the generated instances on graph ``g``:
+  widest path at Q = 1 and 8 and the int32 ``where`` on the calls recorded
+  from their own runs, the damped PageRank with every source active (with
+  ``torch.sparse.mm`` over 0.85s), and SSSP as ``e + m`` on the shipped
+  SSSP's recorded calls; then the ``e + m`` instance's device time against
+  the shipped ``msg_plus_edge`` on those calls, in turns."""
+  import torch
+  f32, i32 = torch.float32, torch.int32
+  single, tiled = ("src/repro/kernels/ell_spmv.py:192",
+                   "src/repro/kernels/ell_spmv.py:165")
+  rows = (
+      ("widest,f32,max,Q=1", "widest", f32, 1, single,
+       recorded["traced:widest"], None),
+      ("widest,f32,max,Q=8", "widest", f32, TRACED_SOURCES, tiled,
+       recorded["traced:widest_q8"], None),
+      ("damped_pr,f32,add,Q=1", "damped_pr", f32, 1, single, None, 0.85),
+      ("int_where,int32,min,Q=1", "int_where", i32, 1, single,
+       recorded["traced:int_where"], None),
+      ("sssp_e_plus_m,f32,min,Q=1", "sssp_e_plus_m", f32, 1, single,
+       sssp_calls, None))
+  entries, records = [], {}
+  for label, prog, dtype, q, replaces, calls, scale in rows:
+    expr = traced_expr(prog, dtype, lane=q > 1)
+    red = traced_programs()[prog][1]
+    if calls is not None:
+      calls = [(c[0], c[1]) for c in calls]
+      if not calls or any(m.shape[1] != q or m.dtype != dtype
+                          for m, _ in calls):
+        raise AssertionError(f"{phase}: {label}: the recorded calls are "
+                             "not its own")
+    name = f"ell_spmv[{tag}{label},traced]"
+    entry, records[name] = time_ell(
+        phase, g, ell_mod, ref_mod, gen, csr, name, expr, red, dtype, q,
+        None, replaces, calls, launches, library_scale=scale)
+    entries.append(entry)
+  ext = {"row_end": g.row_end, "mask_prefix": g.mask_prefix,
+         "segments": ell_mod.row_segments(g.row_end)}
+  calls = [(c[0], c[1]) for c in sssp_calls]
+  generated = traced_expr("sssp_e_plus_m", f32, lane=False)
+  paired = paired_device_ms(calls, {
+      "msg_plus_edge": lambda m, a: ell_mod.ell_spmv(
+          g.cols, g.vals, g.mask, m, a, process_op="msg_plus_edge",
+          reduce_kind="min", **ext),
+      "e_plus_m": lambda m, a: ell_mod.ell_spmv(
+          g.cols, g.vals, g.mask, m, a, process=generated, reduce_kind="min",
+          **ext)})
+  paired["ratio"] = paired["e_plus_m"] / paired["msg_plus_edge"]
+  log(f"{phase}: SSSP on its {len(calls)} recorded calls, the card's ms a "
+      f"launch in turns: shipped msg_plus_edge {paired['msg_plus_edge']:.5f}"
+      f", generated e + m {paired['e_plus_m']:.5f} (ratio "
+      f"{paired['ratio']:.4f})")
+  return entries, records, paired
+
+
+def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict,
+                 traced_launches: dict):
   import torch
   from repro_torch.core.spmv import merge_spill
   from repro_torch.kernels.ops import spmv_ell_cuda
@@ -1005,6 +1374,12 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict):
         "phase 4", g, ell_mod, ref_mod, gen, csr, name, op, red, dtype, q,
         kd, replaces, calls, launches)
     entries.append(entry)
+  traced, traced_records, paired = traced_rows(
+      "phase 4", g, ell_mod, ref_mod, gen, csr, traced_launches, recorded,
+      recorded["sssp,Q=1"])
+  entries += traced
+  records.update(traced_records)
+  records["sssp_shipped_vs_generated"] = paired
   del csr
 
   # The kernel's time by frontier: all sources active (no slot reads an
@@ -3573,7 +3948,21 @@ def examples_road(side: int, ell_mod, ref_mod):
         "phase 14", g, ell_mod, ref_mod, gen, csr, name, op, red, dtype, 1,
         None, "src/repro/kernels/ell_spmv.py:192", calls, launches[algo])
     entries.append(entry)
-  del recorded, csr, g
+
+  # The lambda-only programs on the road grid, their generated instances'
+  # rows, and e + m against msg_plus_edge on the road SSSP's calls.
+  traced, traced_launches, traced_calls = traced_runs(
+      "phase 14", g, out_deg, ell_mod, every=ROAD_RECORD_EVERY,
+      lane_every=ROAD_RECORD_EVERY, lane_iters=TRACED_ROAD_LANE_ITERS)
+  out["traced"] = traced
+  traced_calls = {f"traced:{k}": v for k, v in traced_calls.items()}
+  traced_entries, traced_records, paired = traced_rows(
+      "phase 14", g, ell_mod, ref_mod, gen, csr, traced_launches,
+      traced_calls, recorded["sssp"], tag="road-grid,")
+  entries += traced_entries
+  records.update(traced_records)
+  records["sssp_shipped_vs_generated"] = paired
+  del recorded, traced_calls, csr, g
   torch.cuda.empty_cache()
   out["kernel_rows"] = records
   return out, entries
@@ -3594,7 +3983,8 @@ def examples_rmat(scale: int, ell_mod) -> dict:
                                   rmat_edges, shuffle_vertices, symmetrize)
 
   out = {"scale": scale}
-  # The quickstart, declared (process_op) and as the reference's lambda.
+  # The quickstart, declared (process_op) and as the reference's lambda,
+  # whose trace equals the declared form: both run its shipped instance.
   qs = load_example("quickstart_torch")
   (g, n), build_s = timed(lambda: qs.build_graph(scale, "cuda"))
   forms = {}
@@ -3610,10 +4000,10 @@ def examples_rmat(scale: int, ell_mod) -> dict:
   if not (torch.equal(a["dist"], b["dist"])
           and a["supersteps"] == b["supersteps"]):
     raise AssertionError("phase 14: the quickstart's two forms disagree")
-  if (a["plan"], b["plan"]) != ("cuda_ell", "ell") or not a["launches"] \
-      or b["launches"]:
-    raise AssertionError("phase 14: the quickstart's declared form did not "
-                         "run the kernel, or its lambda did: " + json.dumps(
+  if (a["plan"], b["plan"]) != ("cuda_ell", "cuda_ell") or not (
+      a["launches"] and b["launches"]):
+    raise AssertionError("phase 14: the quickstart's declared form or its "
+                         "lambda did not run the kernel: " + json.dumps(
                              {k: (v["plan"], v["launches"])
                               for k, v in forms.items()}))
   out["quickstart"] = {k: {f: v[f] for f in ("plan", "seconds", "launches",
@@ -3624,7 +4014,8 @@ def examples_rmat(scale: int, ell_mod) -> dict:
       f"{a['supersteps']} supersteps, reached {a['reached']:,}/{n:,}; "
       f"process_op -> {a['plan']} {a['seconds'] * 1e3:.2f} ms "
       f"({a['launches']} launches), lambda -> {b['plan']} "
-      f"{b['seconds'] * 1e3:.2f} ms; distances equal bitwise")
+      f"{b['seconds'] * 1e3:.2f} ms ({b['launches']} launches); distances "
+      "equal bitwise")
   del g, forms, a, b
 
   # The suite's PageRank and BFS, held to the native baselines.
@@ -4129,7 +4520,8 @@ def main(argv=None) -> int:
   log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
       f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
   t0 = time.perf_counter()
-  _build.load_all([ell_mod.LIBRARY, ss_mod.LIBRARY])
+  generated = traced_libraries(ell_mod)
+  _build.load_all([ell_mod.LIBRARY, ss_mod.LIBRARY, *generated.values()])
   builds = {}
   for lib in (ell_mod.LIBRARY, ss_mod.LIBRARY):
     info = lib.info
@@ -4137,12 +4529,31 @@ def main(argv=None) -> int:
     log(f"phase 1: built {info['path']} in {info['seconds']:.2f} s")
     log("\n".join(line for line in info["log"].splitlines()
                   if "registers" in line or "error" in line.lower())[:4000])
-  log(f"phase 1: both builds took {time.perf_counter() - t0:.2f} s")
+  # Each generated instance (the kernel over one traced process, one dtype
+  # and reduce): its first use built it; a second load finds the build.
+  for (name, dtype), lib in generated.items():
+    info = lib.info
+    ptxas = [line.split("ptxas info    : ")[-1]
+             for line in info["log"].splitlines()
+             if "registers" in line or "spill" in line]
+    again = lib.reloaded()
+    again.load()
+    builds[f"generated:{name},{dtype}"] = {
+        "path": info["path"], "seconds": info["seconds"],
+        "cache_hit_seconds": again.info["seconds"], "ptxas": ptxas,
+        "log": info["log"]}
+    log(f"phase 1: built the instance of traced {name} ({dtype}) in "
+        f"{info['seconds']:.2f} s, loaded again in "
+        f"{again.info['seconds']:.2f} s; " + "; ".join(
+            line for line in ptxas if "registers" in line)[:1500])
+  log(f"phase 1: {2 + len(generated)} builds took "
+      f"{time.perf_counter() - t0:.2f} s")
 
   sweep = phase_kernel_sweep(ell_mod, ref_mod)
   slice_stats, g, recorded, edges = phase_slice(args.scale, 32, ell_mod)
   entries, ell_rows, split, by_frontier = phase_timing(
-      g, ell_mod, ref_mod, slice_stats["launches"], recorded)
+      g, ell_mod, ref_mod, slice_stats["launches"], recorded,
+      slice_stats["traced_launches"])
   suite = phase_suite_graph(g, edges, ell_mod)
   dist_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_2d_")
   prep = prepare_2d(edges, g.n, pathlib.Path(dist_tmp.name))

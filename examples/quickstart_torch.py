@@ -35,11 +35,12 @@ def sssp_program(declared: bool = True) -> GraphProgram:
   """The paper's SSSP appendix as a vertex program.
 
   PROCESS_MESSAGE is the reference's ``lambda msg, edge, dst_prop: msg +
-  edge``.  A Python lambda cannot be compiled into the CUDA ELL kernel, so
-  the declared form names it instead: ``process_op="msg_plus_edge"`` is
-  ``m + e``, and makes the program eligible for the kernel.  With
-  ``declared=False`` the program carries the lambda and runs the plain
-  torch path.
+  edge``.  With ``declared=False`` the program carries that lambda, and the
+  CUDA ELL kernel traces it, as Pallas traces it into its body; the trace
+  equals the shipped form ``m + e`` node for node, so it runs that form's
+  compiled instance.  The declared form names the same form directly,
+  ``process_op="msg_plus_edge"``.  Both run the kernel and give the same
+  distances.
   """
   return GraphProgram(
       # PROCESS_MESSAGE: distance-so-far + edge weight

@@ -18,6 +18,7 @@ from repro_torch import _tree
 from repro_torch.core import graph as graphlib
 from repro_torch.core.backends import base
 from repro_torch.kernels import ell_spmv as kernel
+from repro_torch.kernels import process_expr
 
 
 class CudaEllBackend(base.Backend):
@@ -40,16 +41,21 @@ class CudaEllBackend(base.Backend):
     return isinstance(graph, graphlib.EllGraph)
 
   def eligible(self, graph, msg, dst_prop, program):
-    # One message leaf the kernel takes and a process_op; a form that reads
-    # the destination property needs it as one leaf the kernel takes.
+    # What the reference's _pallas_eligible takes: one message leaf of rank
+    # <= 2, at most one destination-property leaf, an add/min/max reduce;
+    # and a process the kernel runs: the program's process_op, or its
+    # process_message traced into a per-lane expression over one dtype.
+    if not isinstance(graph, graphlib.EllGraph):
+      return False
     leaves = _tree.tree_leaves(msg)
     dp_leaves = _tree.tree_leaves(dst_prop) if program.process_reads_dst else []
-    return (isinstance(graph, graphlib.EllGraph)
-            and program.process_op is not None and len(leaves) == 1
-            and len(dp_leaves) <= 1
-            and kernel.takes(leaves[0], graph.vals, program.process_op,
-                             program.reduce_kind,
-                             dp_leaves[0] if dp_leaves else None))
+    if len(leaves) != 1 or leaves[0].ndim > 2 or len(dp_leaves) > 1:
+      return False
+    dp = dp_leaves[0] if dp_leaves else None
+    process = process_expr.for_program(program, leaves[0], graph.vals, dp)
+    return (not isinstance(process, process_expr.Refused)
+            and kernel.takes(leaves[0], graph.vals, process,
+                             program.reduce_kind, dp))
 
   def execute(self, graph, msg, active, dst_prop, program, plan, with_recv):
     from repro_torch.kernels import ops as kops  # lazy: kernels import core

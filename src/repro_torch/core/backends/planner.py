@@ -100,14 +100,24 @@ def compute_stats(graph) -> GraphStats:
   raise TypeError(f"unknown graph container {type(graph)}")
 
 
-def _kernel_shape_ok(program: Optional[GraphProgram]) -> bool:
+def _kernel_shape_ok(program: Optional[GraphProgram], q: int = 1) -> bool:
   """Program-level approximation of the kernel's eligibility (the exact
-  per-call check needs the payload; see CudaEllBackend.eligible)."""
+  per-call check needs the payload; see CudaEllBackend.eligible): an
+  add/min/max reduce, at most one payload axis, and a process the kernel
+  runs, its ``process_op`` or its ``process_message`` traced at float32
+  (lanes of ``q`` > 1)."""
   if program is None:
     return False
-  return (program.reduce_kind in _KERNEL_KINDS
-          and program.num_message_dims <= 1
-          and program.process_op is not None)
+  if not (program.reduce_kind in _KERNEL_KINDS
+          and program.num_message_dims <= 1):
+    return False
+  if program.process_op is not None:
+    return True
+  from repro_torch.kernels import process_expr  # lazy: kernels import core
+  traced = process_expr.trace(program.process_message, torch.float32,
+                              lane=q > 1,
+                              reads_dst=program.process_reads_dst)
+  return not isinstance(traced, process_expr.Refused)
 
 
 class PlanCache:
@@ -179,7 +189,7 @@ class Planner:
     if stats.container == "dense":
       return Plan(backend="dense")
     if stats.container == "ell":
-      if (_kernel_shape_ok(program)
+      if (_kernel_shape_ok(program, q)
           and stats.ell_efficiency >= self.ell_efficiency_floor):
         return Plan(backend="cuda_ell")
       return Plan(backend="ell")
@@ -196,7 +206,7 @@ class Planner:
       return [Plan(backend="dense")]
     if stats.container == "ell":
       out = [Plan(backend="ell")]
-      if _kernel_shape_ok(program):
+      if _kernel_shape_ok(program, q):
         out.append(Plan(backend="cuda_ell"))
         out += [Plan(backend="cuda_ell", block_rows=br)
                 for br in _KERNEL_BLOCK_ROWS]

@@ -13,14 +13,11 @@ while the port calls them once on whole tensors.
   query axis), and the destination property ``d`` shaped ``[*edges, ...]``
   (or a broadcast dummy when ``process_reads_dst`` is False).
 
-``process_op`` is the one field the JAX program does not have.  A Python
-callable cannot be compiled into a CUDA kernel the way Pallas traces it into
-its body, so a program that wants the hand-written ELL kernel names one of
-the per-edge forms of :data:`PROCESS_FORMS` instead of giving a
-``process_message``; the program then takes that form as its
+``process_op`` is the one field the JAX program does not have: a shorthand
+that names one of the per-edge forms the CUDA ELL kernel ships compiled
+(:data:`PROCESS_FORMS`).  The program then takes that form as its
 ``process_message``, and reads the destination property exactly when the
-form does (:data:`DST_FORMS`), so the kernel and the torch backends compute
-the same function:
+form does (:data:`DST_FORMS`):
 
 * ``"msg"``: ``m`` (PageRank, delta-PageRank);
 * ``"msg_plus_one"``: ``m + 1`` (BFS);
@@ -32,7 +29,11 @@ the same function:
   ``(e - Σ_k m_k d_k) * m``, only at K = 1; CF runs on the torch backends,
   as in the reference (:mod:`repro_torch.algos.collab_filter`).
 
-A program without a ``process_op`` is not eligible for the kernel.
+A program without a ``process_op`` reaches the kernel too, as the
+reference's reaches ``ell_spmv_pallas``: its ``process_message`` is traced
+into a per-lane expression and compiled into the kernel
+(:mod:`repro_torch.kernels.process_expr`); a trace equal to one of the
+forms runs that form's shipped instance.
 """
 
 from __future__ import annotations

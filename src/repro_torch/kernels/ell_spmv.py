@@ -13,13 +13,27 @@ most 4 slots; a table with a longer row gets a cooperative launch that
 skips the per-slot active flags when every source is active, a table of
 short rows only a plain launch).
 
-The kernel is built with ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface, at its first launch, into ``build/`` at the repository
-root, and loaded with ``ctypes`` (:mod:`repro_torch.kernels._build`).
+The per-edge process is the functor the kernel is templated on: a
+``process_op`` names one of the five shipped forms, and a
+:class:`~repro_torch.kernels.process_expr.ProcessExpr` is a program's own
+``process_message``, traced (as ``ell_spmv_pallas`` traces it into its
+body).  A traced process that equals a shipped form node for node runs the
+shipped instance; any other gets an instance of its own, for its dtype and
+reduce (:func:`library_for`).
+
+The shipped library is built with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, at its first launch, into ``build/`` at
+the repository root, and loaded with ``ctypes``
+(:mod:`repro_torch.kernels._build`); a generated instance is built the same
+way at its first launch (a few seconds; ``CudaLibrary.info`` keeps the
+seconds and the compiler's register and spill lines) and found there by
+later runs.
 
 :func:`ell_spmv` runs the kernel on CUDA tensors and the plain version
-(:func:`repro_torch.kernels.ref.ell_spmv_ref`) on CPU tensors; on a CUDA
-tensor it launches or raises.  :data:`launches` counts the launches.
+(:func:`repro_torch.kernels.ref.ell_spmv_ref`, with the program's callable
+itself for a traced process) on CPU tensors; on a CUDA tensor it launches
+or raises, a failed build or launch included.  :data:`launches` counts the
+launches.
 """
 
 from __future__ import annotations
@@ -27,7 +41,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +51,7 @@ from repro_torch.core.graph import ell_extent
 from repro_torch.core.vertex_program import (DST_FORMS, PROCESS_FORMS,
                                              PROCESS_OPS)
 from repro_torch.kernels._build import CudaLibrary
+from repro_torch.kernels.process_expr import DTYPES, ProcessExpr
 from repro_torch.kernels.ref import ell_spmv_ref
 
 # The forms that read vals.
@@ -111,6 +127,75 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = CudaLibrary("ell_spmv.cu", _bind)
+
+# A generated instance: the body over one traced process, for one dtype and
+# reduce, with the shipped library's C entry point (dtype and reduce
+# checked, op ignored).
+_GENERATED_SOURCE = """\
+// The ELL kernel of ell_spmv_body.cuh over one traced process_message, for
+// {dtype} and the {reduce} reduce (written by kernels/ell_spmv.py).
+#include "ell_spmv_body.cuh"
+
+namespace {{
+{functor}
+}}  // namespace
+
+extern "C" int graphmat_ell_spmv(const void* cols, const void* vals,
+                                 const void* mask, const void* msg,
+                                 const void* active, const void* dprop,
+                                 const void* row_end, const void* segs,
+                                 void* y, void* recv, void* sync,
+                                 int n_src, int nseg,
+                                 int num_warps, int width, int q, int q_tile,
+                                 int kd, int flags, int warps_per_block,
+                                 int n_filled, int dtype, int reduce, int op,
+                                 int device, void* stream) {{
+  (void)op;
+  if (dtype != {dtype_code} || reduce != {reduce_code}) {{
+    return static_cast<int>(cudaErrorInvalidValue);
+  }}
+  return run_ell<{ctype}, {reduce_code}, TracedProcess>(
+      cols, vals, mask, msg, active, dprop, row_end, segs, y, recv, sync,
+      n_src, nseg, num_warps, width, q, q_tile, kd, flags, warps_per_block,
+      n_filled, device, stream);
+}}
+
+extern "C" const char* graphmat_cuda_error_string(int code) {{
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}}
+"""
+_CTYPE = {torch.float32: "float", torch.float16: "__half", torch.int32: "int"}
+_generated: Dict[Tuple[str, str], CudaLibrary] = {}
+_generated_lock = threading.Lock()
+
+
+def generated_source(process: ProcessExpr, reduce_kind: str) -> str:
+  """The CUDA source of ``process``'s instance for ``reduce_kind``."""
+  return _GENERATED_SOURCE.format(
+      dtype=DTYPES[process.dtype], reduce=reduce_kind,
+      functor=process.functor_source(), dtype_code=_DTYPE_CODE[process.dtype],
+      reduce_code=_REDUCE_CODE[reduce_kind], ctype=_CTYPE[process.dtype])
+
+
+def library_for(process: Union[str, ProcessExpr],
+                reduce_kind: str) -> CudaLibrary:
+  """The library that runs ``process`` (a form name or a traced process):
+  the shipped one, or the traced process's own instance for ``reduce_kind``
+  (made once, built at its first load)."""
+  if isinstance(process, str) or process.shipped is not None:
+    return LIBRARY
+  key = (process.digest, reduce_kind)
+  lib = _generated.get(key)
+  if lib is None:
+    with _generated_lock:
+      lib = _generated.get(key)
+      if lib is None:
+        lib = _generated[key] = CudaLibrary(
+            f"ell_spmv_{process.digest}_{reduce_kind}", _bind,
+            text=generated_source(process, reduce_kind))
+  return lib
+
+
 # The kernel's grid barrier and all-active flag keep 4 words from launch
 # to launch.  Launches on one stream run in order, so each stream has its
 # own.  A launch that faults leaves the CUDA context unusable (the error is
@@ -202,18 +287,33 @@ def plain_process(process_op: str):
   return lambda m, e, d: form(m, e[..., None], d)
 
 
-def takes(msg: torch.Tensor, vals: torch.Tensor, process_op: str,
-          reduce_kind: str, dprop: Optional[torch.Tensor] = None) -> bool:
+def _reads(process: Union[str, ProcessExpr]) -> Tuple[bool, bool]:
+  """``(reads the edge, reads the destination property)``."""
+  if isinstance(process, ProcessExpr):
+    return process.reads_edge, process.reads_dst
+  return process in EDGE_OPS, process in DST_FORMS
+
+
+def takes(msg: torch.Tensor, vals: torch.Tensor,
+          process: Union[str, ProcessExpr], reduce_kind: str,
+          dprop: Optional[torch.Tensor] = None) -> bool:
   """Whether the kernel takes messages ``msg`` ([n] or [n, Q]) with this
-  form and reduce; the forms that read the edge need ``vals`` in ``msg``'s
-  dtype, and the forms that read the destination property need ``dprop``
-  in it too, shaped as ``msg`` is: [n] with [n], [n, 1] or [n, Q] with
-  [n, Q] (the shapes whose broadcast is lane by lane)."""
-  if not (process_op in PROCESS_FORMS and reduce_kind in _REDUCE_CODE
-          and msg.ndim <= 2 and msg.dtype in _DTYPE_CODE
-          and (process_op not in EDGE_OPS or vals.dtype == msg.dtype)):
+  process (a form name, or a process traced at ``msg``'s dtype) and
+  reduce; a process that reads the edge needs ``vals`` in ``msg``'s dtype,
+  and one that reads the destination property needs ``dprop`` in it too,
+  shaped as ``msg`` is: [n] with [n], [n, 1] or [n, Q] with [n, Q] (the
+  shapes whose broadcast is lane by lane)."""
+  if isinstance(process, ProcessExpr):
+    if process.dtype != msg.dtype:
+      return False
+  elif process not in PROCESS_FORMS:
     return False
-  if process_op not in DST_FORMS:
+  reads_edge, reads_dst = _reads(process)
+  if not (reduce_kind in _REDUCE_CODE and msg.ndim <= 2
+          and msg.dtype in _DTYPE_CODE
+          and (not reads_edge or vals.dtype == msg.dtype)):
+    return False
+  if not reads_dst:
     return True
   q = msg.shape[1] if msg.ndim == 2 else 1
   return (dprop is not None and dprop.dtype == msg.dtype
@@ -233,7 +333,9 @@ def _aligned(t: torch.Tensor, nbytes: int) -> bool:
 
 
 def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
-             msg: torch.Tensor, active: torch.Tensor, *, process_op: str,
+             msg: torch.Tensor, active: torch.Tensor, *,
+             process_op: Optional[str] = None,
+             process: Optional[ProcessExpr] = None,
              reduce_kind: str, dprop: Optional[torch.Tensor] = None,
              row_end: Optional[torch.Tensor] = None,
              mask_prefix: Optional[bool] = None,
@@ -248,12 +350,14 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     msg: [n_src, Q] messages (Q = 1 for a single query), float32, float16
       or int32; y has its dtype.
     active: bool[n_src] source frontier.
-    process_op: a key of :data:`PROCESS_FORMS`; the edge forms need ``vals`` in
-      ``msg``'s dtype.
+    process_op: a key of :data:`PROCESS_FORMS` (a shipped form), or
+    process: a program's ``process_message`` traced at ``msg``'s dtype
+      (:func:`repro_torch.kernels.process_expr.trace`); one of the two.  A
+      process that reads the edge needs ``vals`` in ``msg``'s dtype.
     reduce_kind: add | min | max.
     dprop: [n_pad, Kd] destination properties in packed-row order, Kd = 1
-      or Q, in ``msg``'s dtype: given for the forms of :data:`DST_FORMS`
-      and only for them.
+      or Q, in ``msg``'s dtype: given for a process that reads it
+      (:data:`DST_FORMS`, or a trace that reads ``d``) and only for one.
     row_end, mask_prefix: the mask's :func:`ell_extent` (an
       :class:`EllGraph` carries both); computed from the mask, with a read
       back to the host, unless both are given.
@@ -263,7 +367,16 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     block_queries: query tile, 1..8 (default: the largest divisor of Q that
       is at most 8).
   """
-  _check(process_op in PROCESS_FORMS, "unknown process_op {!r}", process_op)
+  if process is None:
+    _check(process_op in PROCESS_FORMS, "unknown process_op {!r}",
+           process_op)
+    name = process_op
+  else:
+    _check(process_op is None, "give process_op or process, not both")
+    _check(process.dtype == msg.dtype, "process traced at {}, msg is {}",
+           process.dtype, msg.dtype)
+    name = process.name
+  reads_edge, reads_dst = _reads(process_op if process is None else process)
   _check(reduce_kind in _REDUCE_CODE, "reduce_kind {!r}", reduce_kind)
   _check(cols.ndim == 2 and vals.shape == cols.shape
          and mask.shape == cols.shape, "cols, vals, mask must be [n_pad, W]")
@@ -271,21 +384,22 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
          "msg must be [n_src, Q] and active [n_src]")
   n_pad, width = cols.shape
   q = msg.shape[1]
-  if process_op in DST_FORMS:
+  if reads_dst:
     _check(dprop is not None and dprop.ndim == 2
            and dprop.shape[0] == n_pad and dprop.shape[1] in (1, q),
-           "{} needs dprop [n_pad, 1] or [n_pad, Q]", process_op)
+           "{} needs dprop [n_pad, 1] or [n_pad, Q]", name)
     _check(dprop.dtype == msg.dtype, "dprop must have msg's dtype {}",
            msg.dtype)
   else:
-    _check(dprop is None, "{} reads no dprop", process_op)
+    _check(dprop is None, "{} reads no dprop", name)
   tensors = (cols, vals, mask, msg, active) + (
       () if dprop is None else (dprop,))
   if not any(t.is_cuda for t in tensors):
     if dprop is None:
       dprop = torch.zeros((n_pad, 1), dtype=msg.dtype)
     return ell_spmv_ref(cols, vals, mask, msg, active, dprop,
-                        process=plain_process(process_op),
+                        process=(plain_process(process_op) if process is None
+                                 else process.plain),
                         reduce_kind=reduce_kind)
 
   index = cols.get_device()
@@ -295,8 +409,8 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
   _check(mask.dtype == torch.bool and active.dtype == torch.bool,
          "mask and active must be bool")
   _check(msg.dtype in _DTYPE_CODE, "msg dtype {} not supported", msg.dtype)
-  _check(process_op not in EDGE_OPS or vals.dtype == msg.dtype,
-         "{} needs vals in msg's dtype {}", process_op, msg.dtype)
+  _check(not reads_edge or vals.dtype == msg.dtype,
+         "{} needs vals in msg's dtype {}", name, msg.dtype)
   _check(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")
   warps = DEFAULT_BLOCK_ROWS if block_rows is None else int(block_rows)
   _check(1 <= warps <= 32, "block_rows={} must be in 1..32", warps)
@@ -326,7 +440,8 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     flags |= _VEC_ACTIVE
   if tile == 1 and segments.short_rows:
     flags |= _SHORT_ROWS
-  lib = LIBRARY.load()
+  library = LIBRARY if process is None else library_for(process, reduce_kind)
+  lib = library.load()
   y = msg.new_empty((n_pad, q))
   recv = cols.new_empty((n_pad,), dtype=torch.int8)
   stream = torch._C._cuda_getCurrentRawStream(index)
@@ -337,9 +452,9 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
       _sync_words(index, stream).data_ptr(), msg.shape[0], table.shape[0],
       num_warps, width, q, tile, 1 if dprop is None else dprop.shape[1],
       flags, warps, segments.filled_rows, _DTYPE_CODE[msg.dtype],
-      _REDUCE_CODE[reduce_kind], _OP_CODE[process_op], index, stream)
-  LIBRARY.check(rc, "ell_spmv")
-  launches.add(config_key(q, msg.dtype, reduce_kind, process_op))
+      _REDUCE_CODE[reduce_kind], _OP_CODE.get(name, 0), index, stream)
+  library.check(rc, "ell_spmv")
+  launches.add(config_key(q, msg.dtype, reduce_kind, name))
   return y, recv
 
 

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro_torch.core import backends  # noqa: E402
+from repro_torch.kernels import process_expr  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -78,6 +79,10 @@ def test_sssp_matches_reference_bitwise(port, port_graph, reference,
 
 def test_declared_form_is_kernel_eligible_and_the_lambda_is_not(
     port, port_graph):
+  """Both forms are kernel-eligible now: the reference's lambda is traced
+  into the kernel and equals the declared form ``msg_plus_edge`` node for
+  node, so it runs that form's shipped instance (the name is from the
+  slice before the lambda was traced)."""
   graph, n = port_graph
   kernel = backends.get_backend("cuda_ell")
   msg = torch.zeros((n,), dtype=torch.float32)
@@ -85,12 +90,15 @@ def test_declared_form_is_kernel_eligible_and_the_lambda_is_not(
   assert declared.process_op == "msg_plus_edge"
   assert not declared.process_reads_dst
   assert kernel.eligible(graph, msg, msg, declared)
-  assert lam.process_op is None and not kernel.eligible(graph, msg, msg, lam)
-  # Structural auto (the engine's default) resolves each accordingly.
+  assert lam.process_op is None and kernel.eligible(graph, msg, msg, lam)
+  traced = process_expr.for_program(lam, msg, graph.vals, None)
+  assert traced.shipped == "msg_plus_edge"
+  # Structural auto (the engine's default) puts both on the kernel.
   auto = backends.AUTO_PLAN
   assert backends.base.resolve(auto, graph, msg, msg, declared).name == \
       "cuda_ell"
-  assert backends.base.resolve(auto, graph, msg, msg, lam).name == "ell"
+  assert backends.base.resolve(auto, graph, msg, msg, lam).name == \
+      "cuda_ell"
 
 
 def test_main_prints_the_reference_lines(port, capsys):

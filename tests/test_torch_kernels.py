@@ -172,16 +172,33 @@ def test_cuda_ell_rejects_what_the_kernel_does_not_take(rmat_small):
   msg = torch.rand(n)
   act = torch.ones(n, dtype=torch.bool)
   plan = tbe.Plan(backend="cuda_ell")
+  # A process_message of its own (no process_op) is traced into the
+  # kernel, as the reference's reaches ell_spmv_pallas, the destination-
+  # reading m * d too; m * e is the shipped form msg_times_edge.
   no_op = GraphProgram(process_message=lambda m, e, d: m * e,
                        reduce_kind="add", process_reads_dst=False)
-  with pytest.raises(ValueError, match="process_op"):
-    tspmv.spmv(g, msg, act, msg, no_op, backend=plan)
-  assert tbe.resolve(tbe.AUTO_PLAN, g, msg, msg, no_op).name == "ell"
-  # A destination-reading process_message of its own names no process_op.
+  assert tbe.resolve(tbe.AUTO_PLAN, g, msg, msg, no_op).name == "cuda_ell"
+  y, _ = tspmv.spmv(g, msg, act, msg, no_op, backend=plan)
+  y_ell, _ = tspmv.spmv(g, msg, act, msg, no_op, backend=tbe.Plan("ell"))
+  torch.testing.assert_close(y, y_ell, rtol=1e-5, atol=1e-5)
   reads_dst = GraphProgram(process_message=lambda m, e, d: m * d,
                            reduce_kind="add")
-  with pytest.raises(ValueError, match="PROCESS_FORMS"):
-    tspmv.spmv(g, msg, act, msg, reads_dst, backend=plan)
+  assert tbe.resolve(tbe.AUTO_PLAN, g, msg, msg, reads_dst).name == \
+      "cuda_ell"
+  # What it refuses, by reason: a process that mixes the lanes of a
+  # [n, Q] message, and a destination property of two leaves.
+  lanes = torch.rand(n, 4)
+  mixing = GraphProgram(
+      process_message=lambda m, e, d: m * m.sum(-1, keepdim=True),
+      reduce_kind="add", process_reads_dst=False)
+  with pytest.raises(ValueError, match="reduces across the lane axis"):
+    tspmv.spmv(g, lanes, act, lanes, mixing, backend=plan)
+  assert tbe.resolve(tbe.AUTO_PLAN, g, lanes, lanes, mixing).name == "ell"
+  two_leaves = {"a": msg, "b": msg}
+  with pytest.raises(ValueError, match="single-leaf destination property"):
+    tspmv.spmv(g, msg, act, two_leaves, reads_dst, backend=plan)
+  assert tbe.resolve(tbe.AUTO_PLAN, g, msg, two_leaves,
+                     reads_dst).name == "ell"
   with pytest.raises(ValueError, match="not both"):
     GraphProgram(process_message=lambda m, e, d: m * d, process_op="msg")
   with pytest.raises(ValueError, match="process_message or process_op"):

@@ -29,7 +29,9 @@ of the graph through ``Plan("cuda_ell")`` (every call on the RMAT graph,
 every 16th on the road grid) and at three frontiers (every source active,
 10%, all but one); BFS int32 min at Q = 8 at the three frontiers; the
 destination-reading gradient form f32 add at Q = 1 (Kd = 1) and Q = 8
-(Kd = 8) with every source active.  Each at every ``--block-rows`` given
+(Kd = 8) with every source active; and, where the package traces a
+program's own process, SSSP written as ``lambda m, e, d: e + m`` (a
+generated instance) on the SSSP row's calls and frontiers.  Each at every ``--block-rows`` given
 (default: the wrapper's own).  Each row carries its byte bound (the bytes
 the work needs over 3.35 TB/s, as ``chip_smoke.py`` counts them).  The
 output is one JSON line with the card's name and power limit as
@@ -52,6 +54,7 @@ H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 ROAD_RECORD_EVERY = 16
 DST_OP = "edge_minus_msg_dst_times_msg"
 EDGE_OPS = ("msg_plus_edge", "msg_times_edge", DST_OP)
+E_PLUS_M = "traced:e+m"
 # name -> process_op, reduce, dtype name, Q, Kd (None: no dprop),
 # frontiers ("recorded": the calls of the graph's own run of that algorithm)
 ROWS = {
@@ -64,6 +67,11 @@ ROWS = {
                           ("all", "10%", "all_but_one")),
     "gradient,f32,add,Q=1,Kd=1": (DST_OP, "add", "float32", 1, 1, ("all",)),
     "gradient,f32,add,Q=8,Kd=8": (DST_OP, "add", "float32", 8, 8, ("all",)),
+    # SSSP's process written as the lambda e + m: a generated instance (the
+    # trace is msg_plus_edge's with its operands swapped), timed where the
+    # package traces processes.
+    "sssp_e_plus_m,f32,min,Q=1": (E_PLUS_M, "min", "float32", 1, None,
+                                  ("recorded", "all", "10%", "all_but_one")),
 }
 
 
@@ -147,20 +155,34 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 5) -> float:
   return statistics.median(means)
 
 
+PAD_S = 0.05
+
+
 def device_ms(fn, calls: int, repeats: int = 3) -> float:
   """The card's kernel time a call of ``fn``, which makes ``calls`` calls:
   ``torch.profiler``'s device events in the window, summed, over the
-  calls (the events of :func:`cuda_ms` also time the host issuing them)."""
+  calls (the events of :func:`cuda_ms` also time the host issuing them).
+  The window is padded by :data:`PAD_S` of host sleep on both sides: the
+  profiler keeps only the device events that fall inside it on the host's
+  clock, and in a long process a window of a few short launches came back
+  empty (``chip_smoke.py``'s road PageRank row in PR 22).  Raises if the
+  profiler saw fewer kernels than the calls launched."""
+  import time
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    time.sleep(PAD_S)
     for _ in range(repeats):
       fn()
     torch.cuda.synchronize()
+    time.sleep(PAD_S)
   kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+  if len(kernels) < repeats * calls:
+    raise RuntimeError(f"the profiler saw {len(kernels)} kernels of "
+                       f"{repeats * calls} launches")
   busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
   return busy / (repeats * calls)
 
@@ -219,6 +241,15 @@ def measure(args) -> dict:
   csr = None
   for name, (op, red, dt, q, kd, fronts) in ROWS.items():
     dtype = getattr(torch, dt)
+    if op == E_PLUS_M:
+      if not hasattr(ell, "library_for"):
+        continue  # a package that takes only the shipped forms
+      from repro_torch.kernels import process_expr
+      form = {"process": process_expr.trace(lambda m, e, d: e + m, dtype,
+                                            lane=False, reads_dst=False)}
+      recorded[name] = recorded["sssp,f32,min,Q=1"]
+    else:
+      form = {"process_op": op}
     msg = (torch.randint(0, 64, (n, q), generator=gen, device="cuda",
                          dtype=dtype) if dtype == torch.int32
            else torch.rand((n, q), generator=gen, device="cuda"))
@@ -226,8 +257,9 @@ def measure(args) -> dict:
              else torch.rand((g.n_pad, kd), generator=gen, device="cuda"))
     runs = {f: ([(msg, frontiers[f])] if f != "recorded"
                 else recorded[name]) for f in fronts}
-    bounds[name] = {f: bound_ms(g, valid_slots, op, q, kd,
-                                msg.element_size(), calls)
+    bounds[name] = {f: bound_ms(g, valid_slots,
+                                "msg_plus_edge" if op == E_PLUS_M else op, q,
+                                kd, msg.element_size(), calls)
                     for f, calls in runs.items()}
     for b in block_rows:
       key = str(b or "default")
@@ -236,7 +268,7 @@ def measure(args) -> dict:
       for f, calls in runs.items():
         def run(calls=calls, b=b):
           for m, a in calls:
-            ell.ell_spmv(g.cols, g.vals, g.mask, m, a, process_op=op,
+            ell.ell_spmv(g.cols, g.vals, g.mask, m, a, **form,
                          reduce_kind=red, dprop=dprop, block_rows=b, **ext)
         row[f] = cuda_ms(run, iters=max(1, 20 // len(calls))) / len(calls)
         drow[f] = device_ms(run, len(calls))
