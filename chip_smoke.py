@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero before the result line:
    compiler per source, all at once: the shipped ELL and scan libraries
    and the ELL kernel's generated instances for the processes of
    ``traced_programs()`` (per-edge functions written only as lambdas, each
-   traced by ``kernels/process_expr.py``), each instance's seconds and a
+   traced by ``kernels/process_expr.py``; among them processes that
+   mix the lanes of a [n, K] message, at K = 3, 16, 33 and 128, and
+   processes over bfloat16 or mixed dtypes), each instance's seconds and a
    second load's cache hit;
 2. hold the ELL kernel against its plain PyTorch version on the card over a
    sweep of shapes, semirings (the destination-reading form too, with a
@@ -19,7 +21,8 @@ Phases, in order; any failure exits non-zero before the result line:
    (random, degree-sorted prefix rows, empty and last-slot-only rows) and
    frontiers (partial and every source active); then every generated
    instance against its plain version (the program's callable) over the
-   same kinds of case, float16 included;
+   same kinds of case, float16 included, the lane-mixing ones at their K
+   with 80%, all and no sources active;
 3. build an RMAT graph (Graph500 parameters, scale 20, edge factor 16,
    self-loops removed, symmetrized) as an ELL graph on the card, serve 32
    BFS queries through ``GraphQueryServer`` with ``Plan("cuda_ell")`` (by
@@ -30,16 +33,20 @@ Phases, in order; any failure exits non-zero before the result line:
    lambda-only programs (widest path, its 8-source lane form, a damped
    PageRank of 20 sweeps, an int32 ``where``, SSSP as ``e + m``) through
    ``Plan("cuda_ell")`` against ``Plan("ell")``, each launching its
-   generated instance; then run the BFS, the SSSP and the 32 queries again
-   with the kernel's calls recorded;
+   generated instance, and so the mixed-dtype and lane-mixing programs
+   (the damped PageRank in
+   bfloat16, SSSP's ``m + e`` on the graph's edge values in float16, one
+   superstep of a lane dot score over a K = 16 message and property); then
+   run the BFS, the SSSP and the 32 queries again with the kernel's calls
+   recorded;
 4. time the ELL kernel and its plain version with CUDA events on the
    recorded calls of BFS and SSSP (their frontiers, superstep by superstep)
    and with every source active for PageRank (in turns with
    ``torch.sparse.mm``) and the gradient sweeps, the generated instances
    on their own programs' recorded calls, the ``e + m`` instance against
    the shipped ``msg_plus_edge`` on the SSSP's recorded calls (the card's
-   time, in turns), and the kernel at four frontiers (all, 10% and all but
-   one source active);
+   time, in turns), the mixed-dtype and lane-mixing instances' rows, and
+   the kernel at four frontiers (all, 10% and all but one source active);
 5. the paper's five algorithms and its Table 3: PageRank (20 sweeps), BFS
    and SSSP through ``Plan("cuda_ell")`` on the phase-3 graph against the
    native baselines on its edges (BFS and SSSP bitwise, PageRank at rtol
@@ -49,7 +56,11 @@ Phases, in order; any failure exits non-zero before the result line:
    count and to a scipy count) and collaborative filtering at the Netflix
    Prize's size (K = 16, 3 sweeps; its RMSE below the mean rating's, equal
    to the native CF within ``CF_TOL``); each timed against its native
-   baseline in turns, and the five ratios beside the paper's;
+   baseline in turns, and the five ratios beside the paper's; then CF with
+   its process over the latent matrix as the one leaf, phase U through
+   ``Plan("cuda_ell")`` on the item-to-user graph built as ELL (the
+   lane-vector grid), 2 sweeps held to the port's ``coo`` CF within
+   ``CF_TOL``, and its row of the kernels line;
 6. hold the selective-scan kernel against its plain version
    over the shapes of the reference's kernel test, shapes that run each
    choice of lanes per channel, and edge cases at the lanes of the prefill
@@ -193,8 +204,14 @@ Tolerances: ELL min/max reductions and int32 results must match bitwise
 the plain version does; a generated instance computes a float16 process
 in float32 and rounds after each op, as eager CUDA does).  The
 lambda-only programs: widest path (both forms), the int32 ``where`` and
-``e + m`` bitwise ``Plan("ell")``'s, the damped PageRank at rtol 1e-4.  Float add reductions match
-with ``rtol`` 1e-5 in float32 and 1e-2 in float16, ``atol`` = rtol times the
+``e + m`` bitwise ``Plan("ell")``'s, the damped PageRank at rtol 1e-4;
+SSSP on float16 edges bitwise, the bfloat16 PageRank within
+``MIXED_PR_RTOL`` (2e-2), the dot score (a float lane sum) at rtol 1e-5.
+Generated instances of a float16 or bfloat16 result sum in float and round
+once, as the plain version does.  Float add reductions, and processes with
+a float lane sum whatever their reduce, match
+with ``rtol`` 1e-5 in float32, 1e-2 in float16 and 2e-2 in bfloat16
+(``RTOL``), ``atol`` = rtol times the
 largest magnitude of the plain result, because the kernel sums in another
 order than the plain version.  PageRank after 20 sweeps: rtol 1e-4; the
 gradient sweeps' change to the property: rtol 1e-5, atol
@@ -249,11 +266,14 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -349,15 +369,29 @@ def device_busy(fn, top: int = 6, pad_s: float = 0.05) -> dict:
   end = torch.cuda.Event(enable_timing=True)
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t_in = time.perf_counter()
     time.sleep(pad_s)
+    t_call = time.perf_counter()
     start.record()
     fn()
     end.record()
     end.synchronize()
+    t_done = time.perf_counter()
     time.sleep(pad_s)
   wall_ms = start.elapsed_time(end)
-  kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+  events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+  # A kernel is one (stream, name, start, end): a road-grid window once
+  # gave half the card's time a launch of its neighbours, as if it had
+  # counted each event twice.
+  kernels = list({(e.device_resource_id, e.name, e.time_range.start,
+                   e.time_range.end): e for e in events}.values())
   spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+  # Where the events sat on the trace's clock (ms from its start) beside
+  # where the call ran on the host's (ms from entering the window): an
+  # offset between the two clocks shows as a shift of the first.
+  placed = {"call_ms": [(t_call - t_in) * 1e3, (t_done - t_in) * 1e3],
+            "events_ms": ([spans[0][0] / 1e3, max(hi for _, hi in spans) / 1e3]
+                          if spans else None)}
   busy_us, cur = 0.0, None
   for lo, hi in spans:
     if cur is None or lo > cur[1]:
@@ -373,9 +407,44 @@ def device_busy(fn, top: int = 6, pad_s: float = 0.05) -> dict:
     by_name[e.name[:90]] = (by_name.get(e.name[:90], 0.0)
                             + e.time_range.elapsed_us() / 1e3)
   busy_ms = busy_us / 1e3 if kernels else None
-  return {"wall_ms": wall_ms, "kernels": len(kernels), "busy_ms": busy_ms,
+  return {"wall_ms": wall_ms, "kernels": len(kernels),
+          "duplicates": len(events) - len(kernels), "busy_ms": busy_ms,
           "busy_share": None if busy_ms is None else busy_ms / wall_ms,
-          "top_kernels_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+          "top_kernels_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top],
+          "placed": placed}
+
+
+LOST_SHARE = 0.01  # the share of a window's launches the profiler may lose
+# (or find in excess)
+# The pad of each window taken before a launch's card time is given up: a
+# window whose events do not match its launches is taken again with a
+# wider pad (late in a whole run one lost 24 of 130 events three times
+# over at 0.05 s).
+WINDOW_PADS_S = (0.05, 0.5, 2.0)
+
+
+def launch_busy(fn, launches: int) -> dict:
+  """:func:`device_busy` of ``fn``, which makes ``launches`` kernel
+  launches, with ``ms``, the card's time a launch.  A window whose
+  profiler lost more than :data:`LOST_SHARE` of the launches' events, or
+  saw that share more than launched, is taken again with the next pad of
+  :data:`WINDOW_PADS_S`; after the last ``ms`` is None (not measured).
+  ``windows`` holds the events each window saw, ``duplicates`` the events
+  each reported twice, ``placed`` where each window's events and call
+  sat."""
+  seen, twice, placed = [], [], []
+  for pad_s in WINDOW_PADS_S:
+    busy = device_busy(fn, pad_s=pad_s)
+    seen.append(busy["kernels"])
+    twice.append(busy["duplicates"])
+    placed.append(busy["placed"])
+    if abs(busy["kernels"] - launches) <= launches * LOST_SHARE:
+      break
+  else:
+    return busy | {"ms": None, "windows": seen, "duplicates": twice,
+                   "placed": placed}
+  return busy | {"ms": busy["busy_ms"] / busy["kernels"], "windows": seen,
+                 "duplicates": twice, "placed": placed}
 
 
 def busy_line(what: str, busy: dict) -> str:
@@ -404,52 +473,113 @@ SEMIRINGS = {  # name -> (process_op, reduce)
 DST_OP = "edge_minus_msg_dst_times_msg"
 
 
+class Traced(typing.NamedTuple):
+  """A lambda-only program of phases 1-4: its process, its reduce, the
+  message dtypes of its instances, the edge values' dtype (None: the
+  message's), the destination property's (None: not read) and, for a
+  process that mixes the lanes of a [n, K] message, the K of its
+  instances (empty: a lanewise process, one instance for Q = 1 and 8)."""
+
+  fn: object
+  reduce: str
+  dtypes: tuple
+  edge: object = None
+  dst: object = None
+  lanes: tuple = ()
+
+
+# The lane widths of phase 2's lane-mixing instances: a thread group of 4
+# and of 16, 32 threads of 2 lanes (one of them past K), 32 of 4.
+MIXED_LANES = (3, 16, 33, 128)
+
+
 @functools.lru_cache(maxsize=None)
 def traced_programs() -> dict:
-  """name -> (process_message, reduce, dtypes of phase 2's sweep): per-edge
-  functions written only as lambdas, none among the five shipped forms, so
-  that each runs a kernel instance generated from its trace.  ``e + m`` is
-  ``msg_plus_edge`` with its operands swapped (the trace is compared node
-  for node, with no algebra), timed against the shipped instance; ``ops``
-  reaches the comparisons, ``where``, ``sqrt``, ``abs``, a division by a
-  constant, ``exp`` and ``neg`` (phase 2 only).  Made once, so that each
-  keeps its cached trace."""
+  """name -> :class:`Traced`: per-edge functions written only as lambdas,
+  none among the five shipped forms, so that each runs a kernel instance
+  generated from its trace.  ``e + m`` is ``msg_plus_edge`` with its
+  operands swapped (the trace is compared node for node, with no algebra),
+  timed against the shipped instance; ``ops`` reaches the comparisons,
+  ``where``, ``sqrt``, ``abs``, a division by a constant, ``exp`` and
+  ``neg`` (phase 2 only).  Then processes that mix the lanes of a
+  [n, K] message (collaborative filtering's with its latent matrix as the
+  one leaf; a lane dot score, K_out = 1, by max and by min; a lane softmax
+  weight in float32 and bfloat16) and processes over bfloat16 or mixed
+  dtypes (PageRank's ``0.85 * m`` in bfloat16, SSSP's ``m + e`` on float16
+  edges with a float32 result, int32 messages times float32 edges).  Made
+  once, so that each keeps its cached trace."""
   import torch
-  f32, f16, i32 = torch.float32, torch.float16, torch.int32
+  f32, f16, bf16, i32 = (torch.float32, torch.float16, torch.bfloat16,
+                         torch.int32)
+
+  def dot(m, e, d):
+    return (m * d).sum(-1)
   return {
-      "widest": (lambda m, e, d: torch.minimum(m, e), "max", (f32,)),
-      "damped_pr": (lambda m, e, d: 0.85 * m, "add", (f32, f16)),
-      "int_where": (lambda m, e, d: torch.where(m < 1000, m * 2 + 1, m),
-                    "min", (i32,)),
-      "sssp_e_plus_m": (lambda m, e, d: e + m, "min", (f32,)),
-      "ops": (lambda m, e, d: torch.where(
+      "widest": Traced(lambda m, e, d: torch.minimum(m, e), "max", (f32,)),
+      "damped_pr": Traced(lambda m, e, d: 0.85 * m, "add", (f32, f16)),
+      "int_where": Traced(
+          lambda m, e, d: torch.where(m < 1000, m * 2 + 1, m), "min", (i32,)),
+      "sssp_e_plus_m": Traced(lambda m, e, d: e + m, "min", (f32,)),
+      "ops": Traced(lambda m, e, d: torch.where(
           m > e, torch.sqrt(torch.abs(m)) / 3, torch.exp(-e) * m), "max",
-              (f32, f16)),
+                    (f32, f16)),
+      "cf_one_leaf": Traced(
+          lambda m, e, d: (e - (m * d).sum(-1, keepdim=True)) * m, "add",
+          (f32,), dst=f32, lanes=MIXED_LANES),
+      "dot_score": Traced(dot, "max", (f32,), dst=f32, lanes=MIXED_LANES),
+      "dot_score_min": Traced(dot, "min", (f32,), dst=f32, lanes=(33,)),
+      "lane_softmax_weight": Traced(
+          lambda m, e, d: torch.exp(m - m.amax(-1, keepdim=True)) * e, "add",
+          (f32, bf16), lanes=MIXED_LANES),
+      "pr_bf16": Traced(lambda m, e, d: 0.85 * m, "add", (bf16,)),
+      "sssp_half_edges": Traced(lambda m, e, d: m + e, "min", (f32,),
+                                edge=f16),
+      "int_times_float": Traced(lambda m, e, d: m * e, "min", (i32,),
+                                edge=f32),
   }
 
 
-def traced_expr(name: str, dtype, lane: bool):
-  """The traced process of ``traced_programs()[name]`` at ``dtype``, in the
-  lane form (``[n, Q]`` messages) or the scalar one; never a shipped
-  form."""
+def traced_expr(name: str, dtype, lane: bool, k=None):
+  """The traced process of ``traced_programs()[name]`` at message dtype
+  ``dtype``, in the lane form (``[n, Q]`` messages; ``k`` lanes for a
+  lane-mixing one) or the scalar one; never a shipped form."""
   from repro_torch.kernels import process_expr
-  fn = traced_programs()[name][0]
-  expr = process_expr.trace(fn, dtype, lane=lane, reads_dst=False)
-  if not isinstance(expr, process_expr.ProcessExpr) or expr.shipped:
+  prog = traced_programs()[name]
+  expr = process_expr.trace(
+      prog.fn, dtype, lane=lane or bool(prog.lanes), k=k,
+      edge_dtype=prog.edge or dtype, dst_dtype=prog.dst or dtype,
+      kd=(k or 1) if prog.dst is not None else 1,
+      reads_dst=prog.dst is not None)
+  if (not isinstance(expr, process_expr.ProcessExpr) or expr.shipped
+      or bool(prog.lanes) != expr.lane_mixing):
     raise AssertionError(f"traced program {name} at {dtype}: {expr}")
   return expr
 
 
+def traced_instances() -> list:
+  """(name, dtype, K or None) of every generated instance."""
+  return [(name, dt, k) for name, prog in traced_programs().items()
+          for dt in prog.dtypes for k in (prog.lanes or (None,))]
+
+
 def traced_libraries(ell_mod) -> dict:
-  """(name, dtype) -> the generated library of each traced program."""
-  return {(name, dt): ell_mod.library_for(traced_expr(name, dt, False), red)
-          for name, (_, red, dtypes) in traced_programs().items()
-          for dt in dtypes}
+  """(name, dtype, K or None) -> the generated library of each traced
+  program's instance."""
+  return {(name, dt, k): ell_mod.library_for(
+      traced_expr(name, dt, False, k), traced_programs()[name].reduce)
+          for name, dt, k in traced_instances()}
 
 
-def compare(y, yr, r, rr, reduce_kind: str, what: str) -> float:
+# The float tolerances of an add (and of a process with a float lane sum):
+# rtol, with atol rtol times the largest magnitude of the plain result.
+RTOL = {"torch.float32": 1e-5, "torch.float16": 1e-2,
+        "torch.bfloat16": 2e-2}
+
+
+def compare(y, yr, r, rr, reduce_kind: str, what: str, exact=None) -> float:
   """Raise unless kernel (y, r) agrees with plain (yr, rr); returns the max
-  absolute difference of y."""
+  absolute difference of y.  ``exact`` (default: a min or max, or
+  integers): bitwise; else within :data:`RTOL` of the dtype."""
   import torch
   if not torch.equal(r, rr):
     raise AssertionError(f"{what}: recv differs")
@@ -461,11 +591,13 @@ def compare(y, yr, r, rr, reduce_kind: str, what: str) -> float:
           and torch.equal(yf[inf], yrf[inf])):
     raise AssertionError(f"{what}: non-finite entries differ")
   err = float((yf[finite] - yrf[finite]).abs().max()) if finite.any() else 0.0
-  if reduce_kind != "add" or y.dtype == torch.int32:
+  if exact is None:
+    exact = reduce_kind != "add" or not y.is_floating_point()
+  if exact:
     if not torch.equal(y[~nan], yr[~nan]):
       raise AssertionError(f"{what}: not bitwise equal (max err {err})")
     return err
-  rtol = 1e-2 if y.dtype == torch.float16 else 1e-5
+  rtol = RTOL[str(y.dtype)]
   scale = float(yrf[finite].abs().max()) if finite.any() else 0.0
   torch.testing.assert_close(yf, yrf, rtol=rtol, atol=rtol * scale,
                              equal_nan=True, msg=lambda m: f"{what}: {m}")
@@ -656,13 +788,39 @@ def phase_kernel_sweep(ell_mod, ref_mod) -> dict:
   return {"cases": len(cases) + 1, "max_abs_err": max_err, "traced": traced}
 
 
+def traced_operands(gen, name: str, dtype, shape, kw: dict, k=None):
+  """A random ELL block for an instance of ``traced_programs()[name]``:
+  ``random_ell``'s at the message dtype and width (``k`` lanes for a
+  lane-mixing one), the edge values cast to the program's edge dtype and a
+  destination property of width Kd = K where it reads one."""
+  import torch
+  prog = traced_programs()[name]
+  n_pad, width, n_src, q = shape
+  cols, vals, mask, msg, act = random_ell(
+      gen, n_pad, width, n_src, k or q, dtype, p_act=kw.get("p_act", 0.8),
+      mask_kind=kw.get("mask", "random"))
+  if prog.edge is not None:
+    vals = (torch.rand((n_pad, width), generator=gen, device="cuda") * 1.9
+            + 0.1).to(prog.edge)
+  dprop = None
+  if prog.dst is not None:
+    dprop = torch.randn((n_pad, k or 1), generator=gen,
+                        device="cuda").to(prog.dst)
+  return cols, vals, mask, msg, act, dprop
+
+
 def traced_sweep(ell_mod, ref_mod, gen) -> dict:
   """Every generated instance against its plain version (the program's
-  callable on the card) over the sweep's case set: random, degree-sorted
-  prefix and empty / last-slot-only rows at 152 slots; the short-row masks
-  (sorted, unsorted, holed, a lane-class boundary) at 8 slots, every source
-  and 10% active; the scalar slot loads at 6; NaN among the messages and
-  edge values; Q = 1 and 8 each."""
+  callable on the card).  A lanewise one over the sweep's case set: random,
+  degree-sorted prefix and empty / last-slot-only rows at 152 slots; the
+  short-row masks (sorted, unsorted, holed, a lane-class boundary) at 8
+  slots, every source and 10% active; the scalar slot loads at 6; NaN
+  among the messages and edge values; Q = 1 and 8 each.  A lane-mixing one
+  at its K: random, prefix and empty / last-slot-only rows at 40 slots with
+  80%, all and no sources active, holed short rows at 8 slots and the
+  scalar slot loads at 6.  Bitwise where the reduce is min or max and the
+  process has no float lane sum (or the values are integers), else within
+  :data:`RTOL`."""
   import torch
   cases = []
   for q in (1, 8):
@@ -677,35 +835,51 @@ def traced_sweep(ell_mod, ref_mod, gen) -> dict:
     cases.append(((256, 24, 300, q), {"nan": True}))
   for mask_kind in ("short", "short_holes"):
     cases.append(((300, 6, 310, 1), {"mask": mask_kind, "p_act": 0.5}))
+  lane_cases = [((300, 40, 310, None), {"mask": mask_kind, "p_act": p_act})
+                for mask_kind in ("random", "sorted", "edge_rows")
+                for p_act in (0.8, 2.0, 0.0)]
+  lane_cases += [((300, 8, 310, None), {"mask": "short_holes",
+                                        "p_act": 0.5}),
+                 ((300, 6, 310, None), {"mask": "short", "p_act": 0.8})]
   count, max_err, per = 0, 0.0, {}
-  for name, (_, red, dtypes) in traced_programs().items():
-    for dtype in dtypes:
-      err = 0.0
-      for shape, kw in cases:
-        n_pad, width, n_src, q = shape
-        kw = dict(kw)
-        if kw.get("nan") and dtype == torch.int32:
-          continue
-        cols, vals, mask, msg, act = random_ell(
-            gen, n_pad, width, n_src, q, dtype, p_act=kw.get("p_act", 0.8),
-            mask_kind=kw.get("mask", "random"))
-        if kw.get("nan"):
-          msg[torch.rand(msg.shape, generator=gen, device="cuda") < 0.01] = (
-              float("nan"))
-          vals[torch.rand(vals.shape, generator=gen, device="cuda") < 0.01] = (
-              float("nan"))
-        expr = traced_expr(name, dtype, lane=q > 1)
-        y, r = ell_mod.ell_spmv(cols, vals, mask, msg, act, process=expr,
-                                reduce_kind=red)
-        dprop = torch.zeros((n_pad, 1), dtype=dtype, device="cuda")
-        yr, rr = ref_mod.ell_spmv_ref(cols, vals, mask, msg, act, dprop,
-                                      process=expr.plain, reduce_kind=red)
-        torch.cuda.synchronize()
-        err = max(err, compare(y, yr, r, rr, red,
-                               f"traced {name} {dtype} {shape} {kw}"))
-        count += 1
-      per[f"{name},{dtype}"] = err
-      max_err = max(max_err, err)
+  for name, dtype, k in traced_instances():
+    prog = traced_programs()[name]
+    # A float lane sum rounds in another order than the plain version.
+    exact = None
+    if k is not None and any(op in ("lane_sum", "lane_mean") for op, *_ in
+                             traced_expr(name, dtype, True, k).nodes):
+      exact = False
+    err = 0.0
+    for shape, kw in (cases if k is None else lane_cases):
+      if kw.get("nan") and dtype == torch.int32:
+        continue
+      cols, vals, mask, msg, act, dprop = traced_operands(
+          gen, name, dtype, shape, kw, k)
+      if kw.get("nan"):
+        msg[torch.rand(msg.shape, generator=gen, device="cuda") < 0.01] = (
+            float("nan"))
+        vals[torch.rand(vals.shape, generator=gen, device="cuda") < 0.01] = (
+            float("nan"))
+      expr = traced_expr(name, dtype, lane=msg.shape[1] > 1 or k is not None,
+                         k=k)
+      y, r = ell_mod.ell_spmv(cols, vals, mask, msg, act, process=expr,
+                              reduce_kind=prog.reduce, dprop=dprop)
+      dp = (torch.zeros((shape[0], 1), dtype=dtype, device="cuda")
+            if dprop is None else dprop)
+      yr, rr = ref_mod.ell_spmv_ref(cols, vals, mask, msg, act, dp,
+                                    process=expr.plain,
+                                    reduce_kind=prog.reduce)
+      torch.cuda.synchronize()
+      if y.shape != yr.shape or y.dtype != yr.dtype:
+        raise AssertionError(f"traced {name} {dtype} K={k} {shape}: y "
+                             f"{y.dtype}{list(y.shape)}, plain "
+                             f"{yr.dtype}{list(yr.shape)}")
+      err = max(err, compare(y, yr, r, rr, prog.reduce,
+                             f"traced {name} {dtype} K={k} {shape} {kw}",
+                             exact=exact))
+      count += 1
+    per[f"{name},{dtype}" + ("" if k is None else f",K={k}")] = err
+    max_err = max(max_err, err)
   log(f"phase 2: generated instances == plain on {count} cases "
       f"(max abs err {max_err:.3g}; by program {json.dumps(per)})")
   return {"cases": count, "max_abs_err": max_err, "by_program": per}
@@ -920,6 +1094,12 @@ def phase_slice(scale: int, num_queries: int, ell_mod):
   traced, traced_launches, traced_calls = traced_runs(
       "phase 3", g, out_deg, ell_mod, lane_every=4)
   stats.update(traced=traced, traced_launches=traced_launches)
+  # Lane-mixing and mixed-dtype programs on the same graph.
+  mixed, mixed_launches, mixed_calls = mixed_runs("phase 3", g, out_deg,
+                                                  ell_mod)
+  stats.update(mixed=mixed, mixed_launches=mixed_launches)
+  traced_launches.update(mixed_launches)
+  traced_calls.update(mixed_calls)
 
   # The kernel's calls on this run's data, for phase 4 to time: the BFS and
   # SSSP again, and the 32 queries again through drain().  These launches
@@ -964,21 +1144,21 @@ def traced_graph_programs(g, out_deg, lane_iters=None) -> dict:
   n, dev = g.n, out_deg.device
   neg_inf, inf = float("-inf"), float("inf")
   widest = GraphProgram(
-      process_message=fns["widest"][0], reduce_kind="max",
+      process_message=fns["widest"].fn, reduce_kind="max",
       apply=torch.maximum, needs_recv=False, inert_message=neg_inf,
       lanewise=True, process_reads_dst=False, name="widest_path")
   widest_q = dataclasses.replace(widest, activate=lanewise_activate,
                                  name="widest_path_lanes")
   deg = out_deg.clamp(min=1.0)
   damped = GraphProgram(
-      process_message=fns["damped_pr"][0], reduce_kind="add",
+      process_message=fns["damped_pr"].fn, reduce_kind="add",
       send_message=lambda r: r / deg, apply=lambda red, old: 0.15 + red,
       process_reads_dst=False, name="damped_pagerank")
   int_where = GraphProgram(
-      process_message=fns["int_where"][0], reduce_kind="min",
+      process_message=fns["int_where"].fn, reduce_kind="min",
       apply=torch.minimum, process_reads_dst=False, name="int_where")
   e_plus_m = GraphProgram(
-      process_message=fns["sssp_e_plus_m"][0], reduce_kind="min",
+      process_message=fns["sssp_e_plus_m"].fn, reduce_kind="min",
       apply=torch.minimum, process_reads_dst=False, name="sssp_e_plus_m")
   sources = torch.arange(TRACED_SOURCES, device=dev) * (n // TRACED_SOURCES)
 
@@ -1068,6 +1248,190 @@ def traced_runs(phase: str, g, out_deg, ell_mod, every: int = 1,
   return out, launches, recorded
 
 
+MIXED_PR_RTOL = 2e-2  # the bfloat16 PageRank: cuda_ell against Plan("ell")
+# The bfloat16 PageRank's largest relative gap to the float32 run on
+# cuda_ell, after 20 sweeps and after one: a few roundings a sweep, damped
+# by 0.85.  A scatter that adds bfloat16 terms in bfloat16 stalls at a hub
+# and misses most of its sum.
+MIXED_PR_GAP = 5e-2
+DOT_SCORE_K = 16       # the dot score's message and property lanes
+
+
+def half_edges(g):
+  """``g`` with its edge values (and its spill's) in float16."""
+  import torch
+  spill = None if g.spill is None else dataclasses.replace(
+      g.spill, w=g.spill.w.to(torch.float16))
+  return dataclasses.replace(g, vals=g.vals.to(torch.float16), spill=spill)
+
+
+def mixed_runs(phase: str, g, out_deg, ell_mod) -> tuple:
+  """The mixed-dtype and lane-mixing programs on graph ``g`` through
+  ``Plan("cuda_ell")`` and ``Plan("ell")``: the damped PageRank in
+  bfloat16 (20 sweeps, within
+  ``MIXED_PR_RTOL``; its largest gap to the float32 run within
+  ``MIXED_PR_GAP``), SSSP as
+  ``m + e`` with float32 messages on the graph's edge values in float16
+  (bitwise, equal supersteps), and one superstep of the lane dot score
+  over a K = 16 message and property (max; rtol 1e-5: a float lane sum).
+  Each must launch its own generated instance (counted from 0 just before
+  its kernel run, read just after).  Returns the record, the launches by
+  counter key and each program's kernel calls, recorded on a first run."""
+  import torch
+  from repro_torch.core import spmv as spmv_mod
+  from repro_torch.core.backends import Plan
+  from repro_torch.core.engine import run_fixed_iters, run_graph_program
+  from repro_torch.core.vertex_program import GraphProgram
+  fns = traced_programs()
+  n, dev = g.n, out_deg.device
+  bf16 = torch.bfloat16
+  kernel, plain = Plan("cuda_ell"), Plan("ell")
+  deg = out_deg.clamp(min=1.0)
+  every = torch.ones((n,), dtype=torch.bool, device=dev)
+  g16 = half_edges(g)
+
+  def pr_program(dtype):
+    d = deg.to(dtype)
+    return GraphProgram(
+        process_message=(fns["pr_bf16"] if dtype == bf16
+                         else fns["damped_pr"]).fn, reduce_kind="add",
+        send_message=lambda r: r / d, apply=lambda red, old: 0.15 + red,
+        process_reads_dst=False, name=f"damped_pagerank_{dtype}")
+  got_prog = (pr_program(bf16), pr_program(torch.float32))
+
+  def pagerank(plan):
+    r0 = torch.ones((n,), dtype=bf16, device=dev)
+    return run_fixed_iters(g, got_prog[0], r0, every, TRACED_PR_ITERS,
+                           backend=plan).prop, TRACED_PR_ITERS
+
+  half = GraphProgram(process_message=fns["sssp_half_edges"].fn,
+                      reduce_kind="min", apply=torch.minimum,
+                      process_reads_dst=False, name="sssp_half_edges")
+
+  def sssp_half(plan):
+    prop = torch.full((n,), float("inf"), device=dev)
+    active = torch.zeros((n,), dtype=torch.bool, device=dev)
+    prop[0], active[0] = 0.0, True
+    st = run_graph_program(g16, half, prop, active, backend=plan)
+    return st.prop, int(st.iteration)
+
+  gen = torch.Generator(device="cuda").manual_seed(24)
+  dot_msg = torch.rand((n, DOT_SCORE_K), generator=gen, device=dev)
+  dot_dst = torch.rand((n, DOT_SCORE_K), generator=gen, device=dev)
+  dot = GraphProgram(process_message=fns["dot_score"].fn, reduce_kind="max",
+                     process_reads_dst=True, name="dot_score")
+
+  def dot_score(plan):
+    y, _ = spmv_mod.spmv(g, dot_msg, every, dot_dst, dot, backend=plan)
+    return y, 1
+
+  runs = {"pr_bf16": (pagerank, bf16, None),
+          "sssp_half_edges": (sssp_half, torch.float32, None),
+          "dot_score": (dot_score, torch.float32, DOT_SCORE_K)}
+  out, launches, recorded = {}, {}, {}
+  for name, (run, dtype, k) in runs.items():
+    recorded[name] = record_calls(lambda: run(kernel))
+    want_name = traced_expr(name, dtype, k is not None, k).name
+    ell_mod.launches.reset()
+    (got, steps), sec = timed(lambda: run(kernel))
+    counts = dict(ell_mod.launches.by_config)
+    if not counts or any(key.split("/")[-1] != want_name for key in counts):
+      raise AssertionError(f"{phase}: {name} launched {counts}")
+    for key, v in counts.items():
+      launches[key] = launches.get(key, 0) + v
+    (want, steps_p), sec_p = timed(lambda: run(plain))
+    if got.dtype != want.dtype or got.shape != want.shape:
+      raise AssertionError(f"{phase}: {name}: {got.dtype}{list(got.shape)} "
+                           f"against {want.dtype}{list(want.shape)}")
+    if name == "sssp_half_edges":
+      if not torch.equal(got, want) or steps != steps_p:
+        raise AssertionError(f"{phase}: {name}: cuda_ell != Plan('ell')")
+      how = "equal bitwise"
+    else:
+      rtol = MIXED_PR_RTOL if name == "pr_bf16" else 1e-5
+      torch.testing.assert_close(
+          got.float(), want.float(), rtol=rtol,
+          atol=rtol * float(want.float().abs().max()),
+          msg=lambda m: f"{phase}: {name}: {m}")
+      how = f"within rtol {rtol}"
+    if not bool(torch.isfinite(got.float()).any()):
+      raise AssertionError(f"{phase}: {name}: no finite value")
+    err = float((got.double() - want.double()).abs().nan_to_num().max())
+    out[name] = {"launches": counts, "supersteps": steps, "seconds": sec,
+                 "plain_seconds": sec_p, "max_abs_err": err}
+    extra = ""
+    if name == "pr_bf16":
+      # Split by whether a vertex has spilled edges, whose sums the COO
+      # scatter folds in, after the 20 sweeps and after one.
+      spilled = torch.zeros((n,), dtype=torch.bool, device=dev)
+      if g.spill is not None:
+        spilled[g.spill.dst[g.spill.emask].long()] = True
+      split = {}
+      for sweeps in (TRACED_PR_ITERS, 1):
+        r16 = run_fixed_iters(g, got_prog[0], torch.ones((n,), dtype=bf16,
+                                                          device=dev), every,
+                              sweeps, backend=kernel).prop.float()
+        r32 = run_fixed_iters(g, got_prog[1], torch.ones((n,), device=dev),
+                              every, sweeps, backend=kernel).prop
+        gaps = ((r16 - r32) / r32.abs().clamp(min=1e-30)).abs()
+        split[f"{sweeps} sweeps"] = {
+            k: float(gaps[m].max()) if bool(m.any()) else None
+            for k, m in (("all", torch.ones_like(spilled)),
+                         ("no_spill", ~spilled), ("spilled", spilled))}
+      out[name]["max_rel_gap_to_f32"] = split
+      extra = ("; largest relative gap to the float32 run "
+               + json.dumps(split))
+      if not max(v["all"] for v in split.values()) <= MIXED_PR_GAP:
+        raise AssertionError(f"{phase}: {name}: gap to the float32 run "
+                             f"over {MIXED_PR_GAP}: {json.dumps(split)}")
+    log(f"{phase}: {name}: {steps} supersteps, launches {counts}, cuda_ell "
+        f"{sec:.3f} s, Plan('ell') {sec_p:.3f} s; max abs err {err:.3g}, "
+        f"{how}{extra}")
+    del got, want
+  torch.cuda.empty_cache()
+  return out, launches, recorded
+
+
+def mixed_rows(phase: str, g, ell_mod, ref_mod, gen, csr: dict,
+               launches: dict, recorded: dict) -> tuple:
+  """The kernels line's rows of the mixed-dtype and lane-mixing instances
+  on graph ``g``: the bfloat16 PageRank with every source active
+  (``torch.sparse.mm`` over
+  0.85s in bfloat16 beside it, where it runs), SSSP on float16 edges on
+  the calls recorded from its own run, and the lane dot score on a random
+  K = 16 message and property."""
+  import torch
+  single = "src/repro/kernels/ell_spmv.py:192"
+  f32, bf16 = torch.float32, torch.bfloat16
+  entries, records = [], {}
+  g16 = half_edges(g)
+  rows = (("pr_bf16,bf16,add,Q=1", "pr_bf16", g, bf16, 1, None, None,
+           {"library_scale": 0.85}),
+          ("sssp_half_edges,f32+f16->f32,min,Q=1", "sssp_half_edges", g16,
+           f32, 1, None, recorded["traced:sssp_half_edges"], {}),
+          (f"dot_score,f32,max,K={DOT_SCORE_K},K_out=1", "dot_score", g, f32,
+           DOT_SCORE_K, DOT_SCORE_K, None,
+           {"exact": False, "library_null": "no single PyTorch call takes "
+            "a row's max over its edges of a per-edge dot product"}))
+  for label, prog, graph, dtype, q, kd, calls, kw in rows:
+    expr = traced_expr(prog, dtype, q > 1, q if q > 1 else None)
+    if calls is not None:
+      calls = [(c[0], c[1]) for c in calls]
+      if not calls or any(m.shape[1] != q or m.dtype != dtype
+                          for m, _ in calls):
+        raise AssertionError(f"{phase}: {label}: the recorded calls are "
+                             "not its own")
+    name = f"ell_spmv[{label},traced]"
+    entry, records[name] = time_ell(
+        phase, graph, ell_mod, ref_mod, gen, csr, name, expr,
+        traced_programs()[prog].reduce, dtype, q, kd, single, calls,
+        launches, **kw)
+    entries.append(entry)
+  del g16
+  torch.cuda.empty_cache()
+  return entries, records
+
+
 def counts_name(name: str, lane: bool) -> str:
   """The launch counter's instance name of a traced program."""
   import torch
@@ -1104,7 +1468,8 @@ def record_calls(fn, every: int = 1) -> list:
 
 def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
              op, red: str, dtype, q: int, kd, replaces: str, calls,
-             launches: dict, library_scale=None):
+             launches: dict, library_scale=None, dprop=None, exact=None,
+             library_null=None):
   """One row of the kernels line: the ELL kernel on graph ``g`` held
   against its plain version on ``calls`` (``(msg, active)`` pairs; None:
   one call of random messages with every source active, as each PageRank
@@ -1114,10 +1479,17 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
   form's name or a traced process (a generated instance unless it equals a
   form).  ``csr`` memoizes the graph's CSR matrices for ``torch.sparse.mm``.
   Returns the row and its record: the all-slots bound, the kernel's own
-  time on the card (``torch.profiler``'s device events: the events' time
-  also holds the host's pace of issuing calls), the device events the
+  time on the card (``torch.profiler``'s device events, by
+  :func:`launch_busy`, None where every window lost events: the events'
+  time also holds the host's pace of issuing calls), the device events the
   profiler saw with and without padding its window (see
-  :func:`device_busy`) and the bound's share of each time."""
+  :func:`device_busy`) and the bound's share of each time.  ``dprop``: the
+  destination property (default: random, ``kd`` wide, in ``dtype``);
+  ``exact``: as :func:`compare`'s; ``library_null``: why no library call
+  is timed.  A lane-mixing process's bound is the larger of its bytes and
+  its operations (the trace's per-edge ops on each active valid slot over
+  the float32 rate); its message gathers (every active valid slot's K
+  values) are logged beside it, not counted: each input is counted once."""
   import torch
   n, n_pad, width = g.n, g.n_pad, g.width
   active = torch.ones((n,), dtype=torch.bool, device="cuda")
@@ -1130,10 +1502,12 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
       msg = torch.randint(0, 64, (n, q), generator=gen, device="cuda",
                           dtype=torch.int32)
     else:
-      msg = torch.rand((n, q), generator=gen, device="cuda")
+      msg = torch.rand((n, q), generator=gen, device="cuda").to(dtype)
     calls = [(msg, active)]
-  dprop = (None if kd is None
-           else torch.rand((n_pad, kd), generator=gen, device="cuda"))
+  if dprop is None and kd is not None:
+    dprop = torch.rand((n_pad, kd), generator=gen, device="cuda").to(
+        dtype if not isinstance(op, str) and op.dst_dtype is None
+        else (dtype if isinstance(op, str) else op.dst_dtype))
   dp = (torch.zeros((n_pad, 1), dtype=dtype, device="cuda")
         if dprop is None else dprop)
   traced = not isinstance(op, str)
@@ -1158,7 +1532,7 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
   for m, a in calls:
     y, r = kernel(m, a)
     yr, rr = plain(m, a)
-    err = max(err, compare(y, yr, r, rr, red, name))
+    err = max(err, compare(y, yr, r, rr, red, name, exact=exact))
   del yr, rr
   plain_ms = cuda_ms(run_all(plain), iters=3 if random_calls else 1,
                      warmup=0) / len(calls)
@@ -1168,36 +1542,60 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
   window = reps * len(calls)
   unpadded = device_busy(
       lambda: [run_all(kernel)() for _ in range(old_reps)], pad_s=0.0)
-  busy = device_busy(lambda: [run_all(kernel)() for _ in range(reps)])
-  # A launch's time over the kernels the profiler saw (a window may miss a
-  # few; the record keeps both counts).
-  device_ms = (None if busy["busy_ms"] is None
-               else busy["busy_ms"] / busy["kernels"])
+  busy = launch_busy(lambda: [run_all(kernel)() for _ in range(reps)],
+                     window)
+  device_ms = busy["ms"]
   size = calls[0][0].element_size()
   edge = op.reads_edge if traced else op in ell_mod.EDGE_OPS
+  lanes = traced and op.lane_mixing
+  k_out = op.k_out if lanes else q
+  out_size = torch.empty((), dtype=op.out_dtype if traced else dtype
+                         ).element_size()
   # Bytes the work needs, whatever implements it, a launch on average:
   # cols of the valid slots, vals for a process that reads the edge, of the
   # valid slots whose source is active (no other is needed), one row
-  # extent per packed row, the active sources' messages, active and dprop
-  # once, y and recv once.
-  active_msgs = sum(int(a.sum()) for _, a in calls) / len(calls)
-  edge_slots = (sum(int((g.mask & a[g.cols]).sum()) for _, a in calls)
-                / len(calls) if edge else 0)
-  need = (valid_slots * 4 + edge_slots * 4 + 4 * n_pad
-          + active_msgs * q * size + n
-          + (0 if kd is None else n_pad * kd * size)
-          + n_pad * q * size + n_pad)
+  # extent per packed row, active once for each source some valid slot
+  # names, the messages of those that are active, dprop once for each row
+  # with such a slot, y and recv once.
+  live_slots = active_msgs = live_rows = 0
+  named = torch.zeros((n,), dtype=torch.bool, device="cuda")
+  named[g.cols[g.mask].long()] = True
+  for _, a in calls:
+    live = g.mask & a[g.cols]
+    live_slots += int(live.sum()) / len(calls)
+    active_msgs += int((named & a).sum()) / len(calls)
+    live_rows += int(live.any(1).sum()) / len(calls)
+  edge_slots = live_slots if edge else 0
+  vsize = g.vals.element_size()
+  need = (valid_slots * 4 + edge_slots * vsize + 4 * n_pad
+          + active_msgs * q * size + int(named.sum())
+          + (0 if dprop is None else live_rows * dprop.shape[1]
+             * dprop.element_size())
+          + n_pad * k_out * out_size + n_pad)
+  bound_ms, bound_by = need / H100_BYTES_PER_S * 1e3, "bytes"
+  ops_ms = gather_bytes = None
+  if lanes:
+    # The trace's operations on one edge (K a lane op or lane reduction, 1
+    # a per-edge op) and the reduce's K_out, on each active valid slot.
+    per_edge = sum(q if shape == "vec" or node_op.startswith("lane_")
+                   else 1 for node_op, _, shape, _, _ in op.nodes) + k_out
+    ops_ms = live_slots * per_edge / H100_F32_OPS_PER_S * 1e3
+    gather_bytes = live_slots * q * size
+    if ops_ms > bound_ms:
+      bound_ms, bound_by = ops_ms, "operations"
   # Every ELL slot's mask, cols (and vals) byte and every message: the
   # all-slots count, kept for the record.
-  full = (n_pad * width * (9 if edge else 5) + n * q * size + n
-          + n_pad * q * size + n_pad)
+  full = (n_pad * width * (5 + (vsize if edge else 0)) + n * q * size + n
+          + n_pad * k_out * out_size + n_pad)
   library_ms = None
   scale = 1.0 if op == "msg" else library_scale
+  if scale is not None and csr.get((scale, dtype), 0) is None:
+    scale = None  # the library refused this dtype (its reason is logged)
   if scale is not None:
     # torch.sparse.mm on the same matrix as CSR: plus_times over the
     # pattern, each value ``scale`` (PageRank's form passes the message
     # through; the damped one scales it).
-    if scale not in csr:
+    if (scale, dtype) not in csr:
       # The packed ELL matrix as CSR, columns sorted within each row.
       rows, slots = g.mask.nonzero(as_tuple=True)
       src_ids = g.cols[rows, slots].long()
@@ -1205,19 +1603,27 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
       rows, slots, src_ids = rows[order], slots[order], src_ids[order]
       crow = torch.zeros(n_pad + 1, dtype=torch.int64, device="cuda")
       crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n_pad), 0)
-      vals = torch.full(src_ids.shape, scale, dtype=torch.float32,
-                        device="cuda")
-      csr[scale] = torch.sparse_csr_tensor(crow, src_ids, vals,
-                                           size=(n_pad, n))
+      vals = torch.full(src_ids.shape, scale, dtype=dtype, device="cuda")
+      csr[scale, dtype] = torch.sparse_csr_tensor(crow, src_ids, vals,
+                                                  size=(n_pad, n))
       del rows, slots, src_ids, order
     m, a = calls[0]
     x = torch.where(a[:, None], m, 0.0)
-    y_lib = torch.sparse.mm(csr[scale], x)
-    torch.testing.assert_close(y_lib, y, rtol=1e-4, atol=1e-4 * float(
-        y.abs().max()))
+    try:
+      y_lib = torch.sparse.mm(csr[scale, dtype], x)
+      torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+      # A yardstick only: the reason goes to the record and the log.
+      library_null = f"torch.sparse.mm refuses {dtype}: {exc}"[:300]
+      csr[scale, dtype] = None
+      scale = None
+  if scale is not None:
+    rtol = 1e-4 if dtype == torch.float32 else RTOL[str(dtype)]
+    torch.testing.assert_close(y_lib.float(), y.float(), rtol=rtol,
+                               atol=rtol * float(y.float().abs().max()))
     # Timed in turns with the kernel, so that both see the same card.
-    kernel_ms, library_ms = paired_ms(run_all(kernel),
-                                      lambda: torch.sparse.mm(csr[scale], x))
+    kernel_ms, library_ms = paired_ms(
+        run_all(kernel), lambda: torch.sparse.mm(csr[scale, dtype], x))
   else:
     kernel_ms = cuda_ms(run_all(kernel), iters=max(1, 20 // len(calls)),
                         repeats=5) / len(calls)
@@ -1229,27 +1635,42 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
                  if generated else "src/repro_torch/kernels/csrc/ell_spmv.cu"),
       "replaces": replaces,
       "launches": int(launches.get(ell_mod.config_key(
-          q, dtype, red, op.name if traced else op), 0)),
+          q, dtype, red, op.name if traced else op, lanes), 0)),
       "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-      "bound_ms": need / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+      "bound_ms": bound_ms, "bound_by": bound_by,
       "library_ms": library_ms}
   record = {"ell_array_bound_ms": full / H100_BYTES_PER_S * 1e3,
             "device_ms": device_ms, "window_launches": window,
             "device_events": busy["kernels"],
+            "device_events_by_window": busy["windows"],
+            "device_events_twice": busy["duplicates"],
+            "device_events_placed": busy["placed"],
             "unpadded_window_launches": old_reps * len(calls),
             "device_events_unpadded": unpadded["kernels"],
             "bound_share": entry["bound_ms"] / kernel_ms,
             "device_bound_share": (None if device_ms is None
-                                   else entry["bound_ms"] / device_ms)}
+                                   else entry["bound_ms"] / device_ms),
+            "byte_bound_ms": need / H100_BYTES_PER_S * 1e3,
+            "ops_bound_ms": ops_ms, "gather_bytes": gather_bytes,
+            "library_null": library_null}
   log(f"{phase}: {name}: kernel {kernel_ms:.4f} ms a launch over "
       f"{len(calls)} call(s) (bound share {record['bound_share']:.3f}), "
       f"on the card {device_ms} ms (share "
-      f"{record['device_bound_share']}; {busy['kernels']} device events of "
-      f"{window} launches; unpadded, {unpadded['kernels']} of "
+      f"{record['device_bound_share']}; {busy['windows']} device events of "
+      f"{window} launches"
+      + ("" if not any(busy["duplicates"]) else
+         f", {busy['duplicates']} reported twice")
+      + f"; unpadded, {unpadded['kernels']} of "
       f"{old_reps * len(calls)}), "
       f"plain {plain_ms:.3f} ms, bound "
-      f"{entry['bound_ms']:.4f} ms, ELL-array bound "
-      f"{record['ell_array_bound_ms']:.4f} ms, library {library_ms}")
+      f"{entry['bound_ms']:.4f} ms ({bound_by}), ELL-array bound "
+      f"{record['ell_array_bound_ms']:.4f} ms, library {library_ms}"
+      + ("" if device_ms is not None else
+         f"; no window's events matched its launches, placed "
+         f"{json.dumps(busy['placed'])}")
+      + ("" if gather_bytes is None else
+         f", message gathers {gather_bytes / 1e6:.1f} MB (not in the bound)")
+      + ("" if library_null is None else f" ({library_null})"))
   torch.cuda.empty_cache()
   return entry, record
 
@@ -1257,19 +1678,30 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
 def paired_device_ms(calls, fns: dict, turns: int = 2) -> dict:
   """The card's time a call of each function in ``fns`` (name -> fn(m,
   a)) over ``calls``, by ``torch.profiler``, in turns (a, b, b, a, ...):
-  the mean of ``turns`` windows each."""
+  the mean of ``turns`` windows each.  A function with a turn whose every
+  window lost events or saw too many (:func:`launch_busy`) gets None, not
+  measured: this
+  compares two times and checks nothing, and ``lost`` keeps the windows
+  and where their events sat."""
   order = list(fns) + list(fns)[::-1]
   got = {k: [] for k in fns}
+  windows = {k: [] for k in fns}
+  lost = {}
   reps = max(1, -(-128 // len(calls)))
   for _ in range(turns // 2 if turns > 1 else 1):
     for k in order:
-      busy = device_busy(lambda: [fns[k](m, a) for _ in range(reps)
-                                  for m, a in calls])
-      if busy["busy_ms"] is None:
-        raise AssertionError(f"no device events timing {k}")
-      got[k].append(busy["busy_ms"] / busy["kernels"])
-  return {k: sum(v) / len(v) for k, v in got.items()} | {
-      "turns": {k: v for k, v in got.items()}}
+      busy = launch_busy(lambda: [fns[k](m, a) for _ in range(reps)
+                                  for m, a in calls], reps * len(calls))
+      windows[k].append({"windows": busy["windows"],
+                         "duplicates": busy["duplicates"]})
+      if busy["ms"] is None:
+        lost.setdefault(k, []).append(
+            {"launches": reps * len(calls), "windows": busy["windows"],
+             "placed": busy["placed"]})
+      got[k].append(busy["ms"])
+  return {k: None if k in lost else sum(v) / len(v)
+          for k, v in got.items()} | {"turns": got, "windows": windows,
+                                      "lost": lost}
 
 
 def traced_rows(phase: str, g, ell_mod, ref_mod, gen, csr: dict,
@@ -1298,7 +1730,7 @@ def traced_rows(phase: str, g, ell_mod, ref_mod, gen, csr: dict,
   entries, records = [], {}
   for label, prog, dtype, q, replaces, calls, scale in rows:
     expr = traced_expr(prog, dtype, lane=q > 1)
-    red = traced_programs()[prog][1]
+    red = traced_programs()[prog].reduce
     if calls is not None:
       calls = [(c[0], c[1]) for c in calls]
       if not calls or any(m.shape[1] != q or m.dtype != dtype
@@ -1321,11 +1753,17 @@ def traced_rows(phase: str, g, ell_mod, ref_mod, gen, csr: dict,
       "e_plus_m": lambda m, a: ell_mod.ell_spmv(
           g.cols, g.vals, g.mask, m, a, process=generated, reduce_kind="min",
           **ext)})
-  paired["ratio"] = paired["e_plus_m"] / paired["msg_plus_edge"]
-  log(f"{phase}: SSSP on its {len(calls)} recorded calls, the card's ms a "
-      f"launch in turns: shipped msg_plus_edge {paired['msg_plus_edge']:.5f}"
-      f", generated e + m {paired['e_plus_m']:.5f} (ratio "
-      f"{paired['ratio']:.4f})")
+  if paired["lost"]:
+    paired["ratio"] = None
+    log(f"{phase}: SSSP on its {len(calls)} recorded calls, the card's ms a "
+        "launch in turns: not measured, no window of a turn saw one event "
+        f"a launch: {json.dumps(paired['lost'])}")
+  else:
+    paired["ratio"] = paired["e_plus_m"] / paired["msg_plus_edge"]
+    log(f"{phase}: SSSP on its {len(calls)} recorded calls, the card's ms a "
+        f"launch in turns: shipped msg_plus_edge "
+        f"{paired['msg_plus_edge']:.5f}, generated e + m "
+        f"{paired['e_plus_m']:.5f} (ratio {paired['ratio']:.4f})")
   return entries, records, paired
 
 
@@ -1380,6 +1818,10 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict,
   entries += traced
   records.update(traced_records)
   records["sssp_shipped_vs_generated"] = paired
+  mixed, mixed_records = mixed_rows("phase 4", g, ell_mod, ref_mod, gen, csr,
+                                    traced_launches, recorded)
+  entries += mixed
+  records.update(mixed_records)
   del csr
 
   # The kernel's time by frontier: all sources active (no slot reads an
@@ -1566,9 +2008,104 @@ def scipy_triangles(src, dst, n: int, chunk: int = 4096) -> int:
                  for lo in range(0, n, chunk)))
 
 
-def phase_suite_tc_cf(seed: int = 11) -> dict:
+CF_KERNEL_SWEEPS = 2
+
+
+def cf_on_kernel(users, items, ratings, g2u, g2i, p0, gamma: float,
+                 ell_mod, ref_mod) -> tuple:
+  """Collaborative filtering at the Netflix Prize's size with the
+  reference CF's process and apply on its latent matrix as the one leaf
+  (the program the reference's ``_pallas_eligible`` passes): the
+  item-to-user graph built as ELL, phase U through ``Plan("cuda_ell")``
+  (the lane-vector grid, K = 16), phase V where ``Planner.plan`` sends it;
+  ``CF_KERNEL_SWEEPS`` sweeps held to the port's ``collaborative_filtering``
+  through ``Plan("coo")`` from the same ``p0`` within ``CF_TOL`` times the
+  largest change the sweeps made; a sweep's host-clock seconds both ways;
+  the kernel's row of the kernels line on the first sweep's phase-U call.
+  """
+  import numpy as np
+  import torch
+  from repro_torch.algos import collaborative_filtering
+  from repro_torch.core.backends import Plan, Planner
+  from repro_torch.core.engine import run_fixed_iters
+  from repro_torch.core.graph import build_ell
+  from repro_torch.core.vertex_program import GraphProgram
+  nu, ni, _ = CF_SHAPE
+  ncf = nu + ni
+  t0 = time.perf_counter()
+  g2u_ell = build_ell(items + nu, users, ratings, n=ncf, device="cuda")
+  torch.cuda.synchronize()
+  t_build = time.perf_counter() - t0
+  spilled = 0 if g2u_ell.spill is None else int(g2u_ell.spill.emask.sum())
+  prog = GraphProgram(
+      process_message=traced_programs()["cf_one_leaf"].fn, reduce_kind="add",
+      apply=lambda red, old: old + gamma * (red - CF_LAM * old),
+      process_reads_dst=True, name="cf_one_leaf")
+  kernel, coo = Plan("cuda_ell"), Plan("coo")
+  v_plan = Planner().plan(g2i, prog)
+  every = torch.ones((ncf,), dtype=torch.bool, device="cuda")
+
+  def sweeps(count):
+    p = p0
+    for _ in range(count):
+      p = run_fixed_iters(g2u_ell, prog, p, every, 1, backend=kernel).prop
+      p = run_fixed_iters(g2i, prog, p, every, 1, backend=v_plan).prop
+    return p
+
+  def plain(count):
+    return collaborative_filtering(g2u, g2i, ncf, CF_K, num_iters=count,
+                                   gamma=gamma, lam=CF_LAM, p0=p0,
+                                   backend=coo)
+
+  ell_mod.launches.reset()
+  p_k = sweeps(CF_KERNEL_SWEEPS)
+  torch.cuda.synchronize()
+  launches = dict(ell_mod.launches.by_config)
+  if ell_mod.launches.total == 0:
+    raise AssertionError("phase 5: CF on cuda_ell never launched the kernel")
+  p_c = plain(CF_KERNEL_SWEEPS)
+  if not bool(torch.isfinite(p_k).all()):
+    raise AssertionError("phase 5: CF on cuda_ell: non-finite factors")
+  err = float((p_k - p_c).abs().max())
+  change = float((p_c - p0).abs().max())
+  (_, sweep_s) = timed(lambda: sweeps(1))
+  (_, sweep_coo_s) = timed(lambda: plain(1))
+  log(f"phase 5: CF (one-leaf process, K={CF_K}) at the Netflix Prize's "
+      f"size: item-to-user ELL width {g2u_ell.width}, {spilled:,} of "
+      f"{len(users):,} ratings spilled (built in {t_build:.1f} s); phase U "
+      f"through cuda_ell, phase V through {plan_name(v_plan)}; kernel "
+      f"launches {launches}; {CF_KERNEL_SWEEPS} sweeps: max|cuda_ell - "
+      f"coo| {err:.3g} (max change {change:.3g}); a sweep {sweep_s:.3f} s "
+      f"against {sweep_coo_s:.3f} s through coo (host clock)")
+  if not err <= CF_TOL * change:
+    raise AssertionError(f"phase 5: CF on cuda_ell != coo ({err:.3g} > "
+                         f"{CF_TOL} x {change:.3g})")
+  record = {"width": g2u_ell.width, "spilled": spilled, "build_s": t_build,
+            "phase_v_plan": plan_name(v_plan), "launches": launches,
+            "sweeps": CF_KERNEL_SWEEPS, "max_abs_err": err,
+            "max_change": change, "sweep_s": sweep_s,
+            "sweep_coo_s": sweep_coo_s}
+  del p_k, p_c
+  expr = traced_expr("cf_one_leaf", torch.float32, True, CF_K)
+  gen = torch.Generator(device="cuda").manual_seed(5)
+  dprop = p0[g2u_ell.row_of.clamp(max=ncf - 1)].contiguous()
+  entry, record["row"] = time_ell(
+      "phase 5", g2u_ell, ell_mod, ref_mod, gen, {},
+      f"ell_spmv[cf_one_leaf,f32,add,K={CF_K},netflix,traced]", expr, "add",
+      torch.float32, CF_K, CF_K, "src/repro/kernels/ell_spmv.py:192",
+      [(p0, every)], launches, dprop=dprop, exact=False,
+      library_null="no single PyTorch call sums (e - m.d) m over a row's "
+      "edges")
+  del g2u_ell, dprop
+  torch.cuda.empty_cache()
+  return record, entry
+
+
+def phase_suite_tc_cf(ell_mod, ref_mod, seed: int = 11) -> tuple:
   """Triangle counting and collaborative filtering, GraphMat against the
-  native baselines and an independent check each."""
+  native baselines and an independent check each; then CF with the
+  one-leaf process on the kernel (:func:`cf_on_kernel`).  Returns the
+  record and the kernels line's CF row."""
   import numpy as np
   import torch
   from repro_torch.algos import collaborative_filtering, triangle_count
@@ -1697,7 +2234,9 @@ def phase_suite_tc_cf(seed: int = 11) -> dict:
   out["cf"]["native_profile"] = device_busy(nat)
   log(busy_line("phase 5: CF GraphMat", out["cf"]["profile"]))
   log(busy_line("phase 5: CF native", out["cf"]["native_profile"]))
-  return out
+  out["cf_kernel"], entry = cf_on_kernel(users, items, ratings, g2u, g2i, p0,
+                                         gamma, ell_mod, ref_mod)
+  return out, entry
 
 
 def table3(suite: dict) -> dict:
@@ -4519,7 +5058,11 @@ def main(argv=None) -> int:
   log(card)
   log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
       f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-  t0 = time.perf_counter()
+  t0 = t_run = time.perf_counter()
+
+  def mark(phase: str) -> None:
+    log(f"{phase}: ended {time.perf_counter() - t_run:.1f} s into the run")
+
   generated = traced_libraries(ell_mod)
   _build.load_all([ell_mod.LIBRARY, ss_mod.LIBRARY, *generated.values()])
   builds = {}
@@ -4531,7 +5074,9 @@ def main(argv=None) -> int:
                   if "registers" in line or "error" in line.lower())[:4000])
   # Each generated instance (the kernel over one traced process, one dtype
   # and reduce): its first use built it; a second load finds the build.
-  for (name, dtype), lib in generated.items():
+  for (name, dtype, k), lib in generated.items():
+    if k is not None:
+      name = f"{name},K={k}"
     info = lib.info
     ptxas = [line.split("ptxas info    : ")[-1]
              for line in info["log"].splitlines()
@@ -4542,24 +5087,32 @@ def main(argv=None) -> int:
         "path": info["path"], "seconds": info["seconds"],
         "cache_hit_seconds": again.info["seconds"], "ptxas": ptxas,
         "log": info["log"]}
+    spilled = sum(int(x) for line in ptxas
+                  for x in re.findall(r"(\d+) bytes spill", line))
     log(f"phase 1: built the instance of traced {name} ({dtype}) in "
         f"{info['seconds']:.2f} s, loaded again in "
-        f"{again.info['seconds']:.2f} s; " + "; ".join(
+        f"{again.info['seconds']:.2f} s; spill bytes {spilled}; " + "; ".join(
             line for line in ptxas if "registers" in line)[:1500])
   log(f"phase 1: {2 + len(generated)} builds took "
-      f"{time.perf_counter() - t0:.2f} s")
+      f"{time.perf_counter() - t0:.2f} s (at most "
+      f"{len(os.sched_getaffinity(0))} at once)")
 
+  mark("phase 1")
   sweep = phase_kernel_sweep(ell_mod, ref_mod)
+  mark("phase 2")
   slice_stats, g, recorded, edges = phase_slice(args.scale, 32, ell_mod)
+  mark("phase 3")
   entries, ell_rows, split, by_frontier = phase_timing(
       g, ell_mod, ref_mod, slice_stats["launches"], recorded,
       slice_stats["traced_launches"])
+  mark("phase 4")
   suite = phase_suite_graph(g, edges, ell_mod)
   dist_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_2d_")
   prep = prepare_2d(edges, g.n, pathlib.Path(dist_tmp.name))
   del g, recorded, edges  # the graph phases' tensors, before TC's bitmaps
   torch.cuda.empty_cache()
-  suite.update(phase_suite_tc_cf())
+  tc_cf, cf_entry = phase_suite_tc_cf(ell_mod, ref_mod)
+  suite.update(tc_cf)
   suite["table3"] = t3 = table3(suite)
   log("phase 5: Table 3 on the card, graphmat/native: " + ", ".join(
       f"{a} {v:.3f} (paper {PAPER_TABLE3[a]})" for a, v in t3["ratios"].items())
@@ -4567,18 +5120,22 @@ def main(argv=None) -> int:
       f"{t3['geomean_paper_four']:.3f} over the paper's four (paper "
       f"{PAPER_GEOMEAN})")
   torch.cuda.empty_cache()
+  mark("phase 5")
   scan = phase_scan(ss_mod, selective_scan_ref)
+  mark("phase 6")
   lm = phase_lm(ss_mod)
   lm["scan_share_of_prefill"] = (lm["scan_launches_per_prefill"] * scan["ms"]
                                  / lm["prefill_ms"])
   log(f"phase 7: {lm['scan_launches_per_prefill']} scan launches x "
       f"{scan['ms']:.4f} ms = {lm['scan_share_of_prefill']:.4f} of the "
       f"{lm['prefill_ms']:.2f} ms prefill")
+  mark("phase 7")
   try:
     dist2d = phase_2d(prep)
   finally:
     dist_tmp.cleanup()
   del prep
+  mark("phase 8")
   torch.cuda.empty_cache()
   ell_mod.launches.reset()
   ss_mod.launches = 0
@@ -4587,6 +5144,7 @@ def main(argv=None) -> int:
                                 "selective_scan": ss_mod.launches}
   log("phase 9: kernel launches on the dense path (none is owed) "
       + json.dumps(granite["kernel_launches"]))
+  mark("phase 9")
   torch.cuda.empty_cache()  # Granite's weights went with its phase
   ell_mod.launches.reset()
   ss_mod.launches = 0
@@ -4644,10 +5202,13 @@ def main(argv=None) -> int:
   finally:
     stop_dryrun_child(child)
   torch.cuda.empty_cache()
+  entries.append(cf_entry)
   examples, road_entries = phase_examples(args.scale, ell_mod, ref_mod)
+  mark("phase 14")
   entries += road_entries
   torch.cuda.empty_cache()
   benchmarks = phase_benchmarks(min(args.scale, BENCH_SCALE), ell_mod)
+  mark("phase 15")
   b, s, _, _ = FALCON_SCAN
   entries.append({
       "name": f"selective_scan[falcon-mamba-7b,f32,B={b},S={s}]",

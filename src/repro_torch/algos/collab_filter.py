@@ -14,7 +14,9 @@ CUDA ELL kernel's per-lane form ``edge_minus_msg_dst_times_msg``
 (``(e - m·d)·m`` lane by lane; the two agree only at K = 1).  The
 destination property has two leaves (``{"p", "side"}``), as in the
 reference, where that keeps CF off the Pallas kernel; here it runs on the
-torch ``coo`` / ``ell`` backends.
+torch ``coo`` / ``ell`` backends.  The same process over the latent matrix
+as the one leaf mixes the lanes on the kernel's lane-vector grid
+(``chip_smoke.py`` phase 5 runs it at the Netflix Prize's size).
 
 The reference draws the initial factors from ``jax.random.PRNGKey``, which
 torch cannot reproduce: the port takes them as ``p0``, or draws them from

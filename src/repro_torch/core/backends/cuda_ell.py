@@ -44,7 +44,7 @@ class CudaEllBackend(base.Backend):
     # What the reference's _pallas_eligible takes: one message leaf of rank
     # <= 2, at most one destination-property leaf, an add/min/max reduce;
     # and a process the kernel runs: the program's process_op, or its
-    # process_message traced into a per-lane expression over one dtype.
+    # process_message traced at the call's dtypes and widths.
     if not isinstance(graph, graphlib.EllGraph):
       return False
     leaves = _tree.tree_leaves(msg)

@@ -104,8 +104,11 @@ def _kernel_shape_ok(program: Optional[GraphProgram], q: int = 1) -> bool:
   """Program-level approximation of the kernel's eligibility (the exact
   per-call check needs the payload; see CudaEllBackend.eligible): an
   add/min/max reduce, at most one payload axis, and a process the kernel
-  runs, its ``process_op`` or its ``process_message`` traced at float32
-  (lanes of ``q`` > 1)."""
+  runs, its ``process_op`` or its ``process_message`` traced at float32:
+  in the lane form at ``q`` lanes when ``q`` > 1; at ``q`` = 1 in the
+  scalar form or, where that is refused, in the lane form (a K-vector
+  message, such as collaborative filtering's, which the reference's
+  planner sends to Pallas too)."""
   if program is None:
     return False
   if not (program.reduce_kind in _KERNEL_KINDS
@@ -114,10 +117,12 @@ def _kernel_shape_ok(program: Optional[GraphProgram], q: int = 1) -> bool:
   if program.process_op is not None:
     return True
   from repro_torch.kernels import process_expr  # lazy: kernels import core
-  traced = process_expr.trace(program.process_message, torch.float32,
-                              lane=q > 1,
-                              reads_dst=program.process_reads_dst)
-  return not isinstance(traced, process_expr.Refused)
+  forms = [dict(lane=True, k=q)] if q > 1 else [dict(lane=False),
+                                                dict(lane=True)]
+  return any(not isinstance(process_expr.trace(
+      program.process_message, torch.float32,
+      reads_dst=program.process_reads_dst, **form), process_expr.Refused)
+             for form in forms)
 
 
 class PlanCache:

@@ -160,12 +160,17 @@ def spmv_dense(adj_vals: torch.Tensor, adj_struct: torch.Tensor, msg: PyTree,
 def _scatter_into(out: torch.Tensor, dst: torch.Tensor, leaf: torch.Tensor,
                   kind: str) -> torch.Tensor:
   """``out[dst[i]] ⊕= leaf[i]`` in place.  Bool leaves (any/all) go through
-  int32, which ``scatter_reduce_`` takes on every device."""
+  int32, which ``scatter_reduce_`` takes on every device.  Float16 and
+  bfloat16 sums go through float32 and round once, as the ELL kernel and
+  ``torch.sum`` do: CUDA's scatter adds each term in the half type, and a
+  hub's sum stops growing once its ulp exceeds the terms."""
   idx = dst.reshape(dst.shape + (1,) * (leaf.ndim - 1)).expand_as(leaf)
-  if leaf.dtype == torch.bool:
-    acc = out.to(torch.int32).scatter_reduce_(
-        0, idx, leaf.to(torch.int32), _SCATTER_REDUCE[kind])
-    out.copy_(acc.bool())
+  if leaf.dtype == torch.bool or (
+      kind == "add" and leaf.dtype in (torch.float16, torch.bfloat16)):
+    wide = torch.int32 if leaf.dtype == torch.bool else torch.float32
+    acc = out.to(wide).scatter_reduce_(0, idx, leaf.to(wide),
+                                       _SCATTER_REDUCE[kind])
+    out.copy_(acc.to(out.dtype))
     return out
   return out.scatter_reduce_(0, idx, leaf, _SCATTER_REDUCE[kind])
 

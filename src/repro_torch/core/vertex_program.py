@@ -26,14 +26,16 @@ form does (:data:`DST_FORMS`):
 * ``"edge_minus_msg_dst_times_msg"``: ``(e - m * d) * m``, which reads the
   destination property ``d`` (the reference's ``plus_dst`` test semiring).
   It acts lane by lane, so it equals collaborative filtering's update,
-  ``(e - Σ_k m_k d_k) * m``, only at K = 1; CF runs on the torch backends,
-  as in the reference (:mod:`repro_torch.algos.collab_filter`).
+  ``(e - Σ_k m_k d_k) * m``, only at K = 1.
 
 A program without a ``process_op`` reaches the kernel too, as the
 reference's reaches ``ell_spmv_pallas``: its ``process_message`` is traced
-into a per-lane expression and compiled into the kernel
+at the call's dtypes and widths, lanewise or mixing the lanes of a
+``[n, K]`` message (CF's own process, where its destination property is
+one leaf), and compiled into the kernel
 (:mod:`repro_torch.kernels.process_expr`); a trace equal to one of the
-forms runs that form's shipped instance.
+forms runs that form's shipped instance, and a ``process_op`` program
+whose dtypes the shipped library lacks runs its form's trace.
 """
 
 from __future__ import annotations

@@ -129,8 +129,12 @@ class CudaLibrary:
 
 
 def load_all(libraries: Iterable[CudaLibrary]) -> None:
-  """Build and load several libraries at once, one ``nvcc`` each."""
+  """Build and load several libraries at once, one ``nvcc`` each, all
+  queued together and at most one running per CPU, in the order given (so
+  the longest builds, given first, keep their pace: 29 builds at once on
+  8 CPUs stretched the shipped ELL library's 35 s to 57 s)."""
   libraries = list(libraries)
-  with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+  workers = max(1, min(len(libraries), len(os.sched_getaffinity(0))))
+  with concurrent.futures.ThreadPoolExecutor(workers) as pool:
     for future in [pool.submit(lib.load) for lib in libraries]:
       future.result()

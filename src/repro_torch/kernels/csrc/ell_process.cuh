@@ -6,22 +6,33 @@
 //   static constexpr bool kReadsEdge;  // apply reads e (the edge value)
 //   static constexpr bool kReadsDst;   // apply reads d (the destination's
 //                                      // property; the launch needs dprop)
-//   __device__ static T apply(T m, T e, T d);  // one lane of one edge
+//   __device__ static R apply(M m, E e, D d);  // one lane of one edge
 //
-// The five shipped forms are below; kernels/process_expr.py writes one from
-// a program's traced process_message (float32 and int32 functors compute
-// in their type, float16 ones in float and round to half after each op, as
-// eager CUDA does).
+// for a lanewise process (the five shipped forms below, templated on one
+// type; kernels/process_expr.py writes one from a program's traced
+// process_message, with its own message, edge, destination and result
+// types: float32 and the integer types compute in their type, float16 and
+// bfloat16 ones in float and round after each op, as eager CUDA does), or,
+// for a process that mixes the lane axis of a K-lane message, kLanes,
+// kGroup, kPer, kOut, kDstLanes and
+//
+//   __device__ static void apply(const M (&m)[kPer], E e, const D (&d)[..],
+//                                R (&out)[..], int sub, unsigned group);
+//
+// over one edge's K lanes, held kPer a thread by the row's kGroup threads
+// (lane sub + kGroup * j on thread sub of the group); a lane reduction is a
+// butterfly of shuffles within the group (group_sum and the like below).
 //
 // Without __CUDACC__ (a host C++ compiler, given the CUDA intrinsics this
-// file names) only the float and int parts are defined: the tests compile
-// the generated functors for the host and hold them against the traced
-// expression.
+// file names) only the float and integer parts are defined: the tests
+// compile the generated lanewise functors for the host and hold them
+// against the traced expression.
 
 #pragma once
 
 #include <stdint.h>
 #ifdef __CUDACC__
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #endif
 
@@ -70,6 +81,27 @@ struct Num<int> {
   __device__ static int bottom() { return -0x7fffffff - 1; }
 };
 
+// The narrow integers wrap, as torch's int8 / int16 / uint8 arithmetic
+// does (computed in int, stored back).
+template <typename T, int LO, int HI>
+struct NarrowNum {
+  __device__ static T add(T a, T b) { return static_cast<T>(a + b); }
+  __device__ static T sub(T a, T b) { return static_cast<T>(a - b); }
+  __device__ static T mul(T a, T b) { return static_cast<T>(a * b); }
+  __device__ static T min(T a, T b) { return a < b ? a : b; }
+  __device__ static T max(T a, T b) { return a > b ? a : b; }
+  __device__ static T zero() { return 0; }
+  __device__ static T one() { return 1; }
+  __device__ static T top() { return static_cast<T>(HI); }
+  __device__ static T bottom() { return static_cast<T>(LO); }
+};
+template <>
+struct Num<int8_t> : NarrowNum<int8_t, -128, 127> {};
+template <>
+struct Num<int16_t> : NarrowNum<int16_t, -32768, 32767> {};
+template <>
+struct Num<uint8_t> : NarrowNum<uint8_t, 0, 255> {};
+
 #ifdef __CUDACC__
 template <>
 struct Num<__half> {
@@ -84,10 +116,71 @@ struct Num<__half> {
   __device__ static __half bottom() { return __ushort_as_half(0xfc00); }
 };
 
-// A float rounded to the nearest half (a generated float16 functor's value
-// after each op).
+template <>
+struct Num<__nv_bfloat16> {
+  __device__ static __nv_bfloat16 add(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __hadd(a, b);
+  }
+  __device__ static __nv_bfloat16 sub(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __hsub(a, b);
+  }
+  __device__ static __nv_bfloat16 mul(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __hmul(a, b);
+  }
+  __device__ static __nv_bfloat16 min(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __hmin_nan(a, b);
+  }
+  __device__ static __nv_bfloat16 max(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __hmax_nan(a, b);
+  }
+  __device__ static __nv_bfloat16 zero() { return __ushort_as_bfloat16(0x0000); }
+  __device__ static __nv_bfloat16 one() { return __ushort_as_bfloat16(0x3f80); }
+  __device__ static __nv_bfloat16 top() { return __ushort_as_bfloat16(0x7f80); }
+  __device__ static __nv_bfloat16 bottom() {
+    return __ushort_as_bfloat16(0xff80);
+  }
+};
+
+// A float rounded to the nearest half or bfloat16, ties to even (a
+// generated float16 or bfloat16 functor's value after each op).
 __device__ __forceinline__ float round_half(float x) {
   return __half2float(__float2half_rn(x));
+}
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The lanes of one row's group of G threads (a power of two, aligned within
+// the warp; `group` is its mask): lane `src` of the group's value, and the
+// sum, max and min over the group, the same on every thread of it (each
+// butterfly step combines two values in the same order on both threads).
+template <int G, typename V>
+__device__ __forceinline__ V group_lane(V v, int src, unsigned group) {
+  return G == 1 ? v : __shfl_sync(group, v, src, G);
+}
+template <int G, typename V>
+__device__ __forceinline__ V group_sum(V v, unsigned group) {
+#pragma unroll
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    v = Num<V>::add(v, __shfl_xor_sync(group, v, off, G));
+  }
+  return v;
+}
+template <int G, typename V>
+__device__ __forceinline__ V group_max(V v, unsigned group) {
+#pragma unroll
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    v = Num<V>::max(v, __shfl_xor_sync(group, v, off, G));
+  }
+  return v;
+}
+template <int G, typename V>
+__device__ __forceinline__ V group_min(V v, unsigned group) {
+#pragma unroll
+  for (int off = G >> 1; off > 0; off >>= 1) {
+    v = Num<V>::min(v, __shfl_xor_sync(group, v, off, G));
+  }
+  return v;
 }
 #endif
 

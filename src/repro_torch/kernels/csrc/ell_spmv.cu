@@ -1,10 +1,10 @@
 // The shipped instances of the generalized ELL SpMV / multi-query SpMM for
 // Hopper (sm_90a): the kernel of ell_spmv_body.cuh (its header says what it
 // computes, what bounds it and how it is designed) over the five process
-// forms of ell_process.cuh, for float, half and int32 and the add, min and
-// max reduces, each with its three launch variants (the cooperative
-// single-query grid, the plain launch for tables of short rows, the
-// query-tiled grid).
+// forms of ell_process.cuh, for float, half and int32 (one type for every
+// operand) and the add, min and max reduces, each with its three launch
+// variants (the cooperative single-query grid, the plain launch for tables
+// of short rows, the query-tiled grid).
 //
 // Replaces the TPU kernel src/repro/kernels/ell_spmv.py::ell_spmv_pallas.  A
 // program's traced process_message that equals one of these forms node for
@@ -33,10 +33,10 @@ int run_op(int op, const void* cols, const void* vals, const void* mask,
            int q_tile, int kd, int flags, int warps_per_block, int n_filled,
            int device, void* stream) {
 #define GRAPHMAT_RUN(P)                                                     \
-  return run_ell<T, R, P>(cols, vals, mask, msg, active, dprop, row_end,    \
-                          segs, y, recv, sync, n_src, nseg, num_warps,      \
-                          width, q, q_tile, kd, flags, warps_per_block,     \
-                          n_filled, device, stream)
+  return run_ell<Operands<T, T, T, T>, R, P>(                               \
+      cols, vals, mask, msg, active, dprop, row_end, segs, y, recv, sync,   \
+      n_src, nseg, num_warps, width, q, q_tile, kd, flags, warps_per_block, \
+      n_filled, 0, device, stream)
   switch (op) {
     case kMsg: GRAPHMAT_RUN(ProcessMsg);
     case kMsgPlusOne: GRAPHMAT_RUN(ProcessMsgPlusOne);
@@ -51,8 +51,10 @@ int run_op(int op, const void* cols, const void* vals, const void* mask,
 
 }  // namespace
 
-// One launch of the form `op` (an Op) for `dtype` (a DType) and `reduce` (a
-// Reduce); see run_ell for the return code.
+// One launch of the form `op` (an Op) for `dtype` (a DType: the message's,
+// and the edge value's and destination property's where they are read, -1
+// where not; the result's too) and `reduce` (a Reduce), K_out = Q; see
+// run_ell for the return code.
 extern "C" int graphmat_ell_spmv(const void* cols, const void* vals,
                                  const void* mask, const void* msg,
                                  const void* active, const void* dprop,
@@ -61,8 +63,16 @@ extern "C" int graphmat_ell_spmv(const void* cols, const void* vals,
                                  int n_src, int nseg,
                                  int num_warps, int width, int q, int q_tile,
                                  int kd, int flags, int warps_per_block,
-                                 int n_filled, int dtype, int reduce, int op,
-                                 int device, void* stream) {
+                                 int n_filled, int n_rows, int dtype,
+                                 int edge_dtype, int dst_dtype, int out_dtype,
+                                 int k_out, int reduce, int op, int device,
+                                 void* stream) {
+  (void)n_rows;
+  if ((edge_dtype != -1 && edge_dtype != dtype) ||
+      (dst_dtype != -1 && dst_dtype != dtype) || out_dtype != dtype ||
+      k_out != q) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 #define GRAPHMAT_OP(T, R)                                                  \
   return run_op<T, R>(op, cols, vals, mask, msg, active, dprop, row_end,   \
                       segs, y, recv, sync, n_src, nseg, num_warps, width,  \

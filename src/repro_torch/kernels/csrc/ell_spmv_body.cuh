@@ -21,10 +21,25 @@
 // program's traced process_message and kernels/ell_spmv.py builds at its
 // first launch.  P::kReadsEdge says whether it reads vals, P::kReadsDst
 // whether it reads the destination row's property d = dprop[r, q] (dprop is
-// [n_pad, Kd], Kd = 1 or Q, already in packed-row order).  Types: float,
-// half, int32; the sum is kept in the output type, as the TPU kernel keeps
-// it; float arithmetic is rounded op by op (no contraction into FMAs), as
-// the plain version rounds it.
+// [n_pad, Kd], Kd = 1 or Q, already in packed-row order).  Types: the
+// message, edge value, destination property and result each have their own
+// (an Operands; the shipped forms: float, half or int32 for all four; a
+// generated instance: float, half, bfloat16, int32, int16, int8 or uint8,
+// as its trace says).  The sum is kept in the result type, as the TPU kernel
+// keeps y in its out_dtype, except that a generated instance with a half or
+// bfloat16 result keeps it in float and rounds once, as the TPU kernel's
+// jnp.sum sums a tile of them in float32; float arithmetic is rounded op by
+// op (no contraction into FMAs), as the plain version rounds it.
+//
+// A process that mixes the lane axis of a [n_src, K] message (a lane sum or
+// max, a select, a result of K_out = 1; the reference's single-query grid
+// with its resident message, ell_spmv.py:192) runs on the lane-vector grid
+// (lanes_kernel below): a group of G threads (K up to 32 rounded up to a
+// power of two, else 32) owns one packed row and walks its slots; for each
+// slot each thread gathers its lanes of msg[col] (lane sub + G * j, so the
+// group's loads are coalesced), the functor applies to the whole vector
+// with its lane reductions as butterflies of shuffles within the group, and
+// the K_out results accumulate spread over the group.
 //
 // What bounds it: bytes, counted as this graph needs them.  Per valid slot
 // 4 bytes of cols (and 4 of vals for a process that reads the edge), 4 bytes
@@ -90,6 +105,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,7 +115,45 @@
 namespace {
 
 enum Reduce { kAdd = 0, kMin = 1, kMax = 2 };
-enum DType { kF32 = 0, kF16 = 1, kI32 = 2 };
+enum DType {
+  kF32 = 0, kF16 = 1, kI32 = 2, kBF16 = 3, kI8 = 4, kI16 = 5, kU8 = 6
+};
+
+// The types of one instance: message, edge value, destination property,
+// result and the accumulator of the reduce (the result's type, or float for
+// a generated instance's half or bfloat16 result).
+template <typename M_, typename E_, typename D_, typename R_,
+          typename A_ = R_>
+struct Operands {
+  using M = M_;
+  using E = E_;
+  using D = D_;
+  using R = R_;
+  using A = A_;
+};
+
+// A value from one type to another: the same type as it is; half and
+// bfloat16 to and from float, to nearest even.
+template <typename To, typename From>
+__device__ __forceinline__ To convert(From x) { return x; }
+template <>
+__device__ __forceinline__ float convert<float, __half>(__half x) {
+  return __half2float(x);
+}
+template <>
+__device__ __forceinline__ __half convert<__half, float>(float x) {
+  return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ float convert<float, __nv_bfloat16>(
+    __nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 convert<__nv_bfloat16, float>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
 // Launch flags: the mask is a prefix of every row (do not read it); cols,
 // vals and mask rows allow 4-slot vector loads; message rows allow 4-value
 // vector loads; active allows 16-flag vector loads; every row is in the
@@ -142,6 +196,16 @@ __device__ __forceinline__ uint8_t ro(const uint8_t* p) { return __ldg(p); }
 __device__ __forceinline__ __half ro(const __half* p) {
   return __ushort_as_half(__ldg(reinterpret_cast<const unsigned short*>(p)));
 }
+__device__ __forceinline__ __nv_bfloat16 ro(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ int8_t ro(const int8_t* p) {
+  return static_cast<int8_t>(__ldg(reinterpret_cast<const char*>(p)));
+}
+__device__ __forceinline__ int16_t ro(const int16_t* p) {
+  return static_cast<int16_t>(__ldg(reinterpret_cast<const short*>(p)));
+}
 
 // Streaming loads of the ELL arrays, which each launch reads once: loaded
 // evict-first, so they do not push the gathered messages out of L1.
@@ -152,6 +216,16 @@ __device__ __forceinline__ __half st(const __half* p) {
 }
 __device__ __forceinline__ uint8_t st(const uint8_t* p) {
   return static_cast<uint8_t>(__ldcs(reinterpret_cast<const char*>(p)));
+}
+__device__ __forceinline__ __nv_bfloat16 st(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldcs(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ int8_t st(const int8_t* p) {
+  return static_cast<int8_t>(__ldcs(reinterpret_cast<const char*>(p)));
+}
+__device__ __forceinline__ int16_t st(const int16_t* p) {
+  return static_cast<int16_t>(__ldcs(reinterpret_cast<const short*>(p)));
 }
 
 // Four consecutive values from an address aligned to four of them:
@@ -183,6 +257,32 @@ __device__ __forceinline__ void ld4(const uint8_t* p, uint8_t* v) {
   const unsigned w = STREAM ? __ldcs(q) : __ldg(q);
   v[0] = w & 0xffu; v[1] = (w >> 8) & 0xffu;
   v[2] = (w >> 16) & 0xffu; v[3] = w >> 24;
+}
+template <bool STREAM>
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p,
+                                    __nv_bfloat16* v) {
+  const uint2* q = reinterpret_cast<const uint2*>(p);
+  const uint2 w = STREAM ? __ldcs(q) : __ldg(q);
+  v[0] = __ushort_as_bfloat16(static_cast<unsigned short>(w.x & 0xffffu));
+  v[1] = __ushort_as_bfloat16(static_cast<unsigned short>(w.x >> 16));
+  v[2] = __ushort_as_bfloat16(static_cast<unsigned short>(w.y & 0xffffu));
+  v[3] = __ushort_as_bfloat16(static_cast<unsigned short>(w.y >> 16));
+}
+template <bool STREAM>
+__device__ __forceinline__ void ld4(const int16_t* p, int16_t* v) {
+  const uint2* q = reinterpret_cast<const uint2*>(p);
+  const uint2 w = STREAM ? __ldcs(q) : __ldg(q);
+  v[0] = static_cast<int16_t>(w.x & 0xffffu);
+  v[1] = static_cast<int16_t>(w.x >> 16);
+  v[2] = static_cast<int16_t>(w.y & 0xffffu);
+  v[3] = static_cast<int16_t>(w.y >> 16);
+}
+template <bool STREAM>
+__device__ __forceinline__ void ld4(const int8_t* p, int8_t* v) {
+  uint8_t u[4];
+  ld4<STREAM>(reinterpret_cast<const uint8_t*>(p), u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = static_cast<int8_t>(u[i]);
 }
 
 // The qn (<= QT) message values of one source row's query tile.
@@ -220,6 +320,9 @@ struct Args {
   // Rows [0, n_filled) each have a set slot: the one-lane class reads their
   // cols beside their extent.
   int n_filled;
+  // The packed rows (the lane-vector grid's count; the other grids walk
+  // the segment table).
+  int n_rows;
 };
 
 // A grid-wide barrier (the launch is cooperative: every block resident).
@@ -265,10 +368,14 @@ __device__ __forceinline__ int find_segment(const Args& args, int warp,
 // One warp's rows: G lanes per row (from the row's segment), 32 / G rows per
 // warp, in one QT-wide query tile: lanes [q0, q0 + qn) of the message and
 // output rows.  With all_active the sources' active flags are not read.
-template <typename T, int R, typename P, int QT>
+template <typename O, int R, typename P, int QT>
 __device__ __forceinline__ void warp_rows(const Args& args, int warp,
                                           int tile, int4 seg,
                                           bool all_active) {
+  using TM = typename O::M;
+  using TE = typename O::E;
+  using TD = typename O::D;
+  using TA = typename O::A;
   constexpr int kSlotsPerLane = slots_per_lane<QT>();
   const int lanes = seg.z;
   const int lane = threadIdx.x & 31;
@@ -283,19 +390,19 @@ __device__ __forceinline__ void warp_rows(const Args& args, int warp,
   const bool prefix = args.flags & kMaskIsPrefix;
   const bool vec_slots = args.flags & kVecSlots;
   const bool vec_msg = args.flags & kVecMsg;
-  const T* vals = static_cast<const T*>(args.vals);
-  const T* msg = static_cast<const T*>(args.msg);
+  const TE* vals = static_cast<const TE*>(args.vals);
+  const TM* msg = static_cast<const TM*>(args.msg);
 
-  T acc[QT];
-  T d[QT];
+  TA acc[QT];
+  TD d[QT];
 #pragma unroll
   for (int j = 0; j < QT; ++j) {
-    acc[j] = identity<T, R>();
-    d[j] = Num<T>::zero();
+    acc[j] = identity<TA, R>();
+    d[j] = Num<TD>::zero();
   }
   if (P::kReadsDst && live) {
     // Once per row, not once per slot.
-    const T* dp = static_cast<const T*>(args.dprop) + row * args.kd;
+    const TD* dp = static_cast<const TD*>(args.dprop) + row * args.kd;
 #pragma unroll
     for (int j = 0; j < QT; ++j) {
       if (j < qn) d[j] = ro(dp + (args.kd == 1 ? 0 : q0 + j));
@@ -307,7 +414,7 @@ __device__ __forceinline__ void warp_rows(const Args& args, int warp,
   const long long base = row * args.width;
   for (int s0 = sub * kSlotsPerLane; s0 < end; s0 += lanes * kSlotsPerLane) {
     int c[kSlotsPerLane];
-    T e[kSlotsPerLane];
+    TE e[kSlotsPerLane];
     bool ok[kSlotsPerLane];
     if (kSlotsPerLane % 4 == 0 && vec_slots) {
       // s0 + v is a multiple of 4 and s0 + v + 3 < width.
@@ -333,20 +440,20 @@ __device__ __forceinline__ void warp_rows(const Args& args, int warp,
         const bool in = s0 + i < end;
         c[i] = in ? st(args.cols + base + s0 + i) : 0;
         if (P::kReadsEdge) {
-          e[i] = in ? st(vals + base + s0 + i) : Num<T>::zero();
+          e[i] = in ? st(vals + base + s0 + i) : Num<TE>::zero();
         }
         ok[i] = in && (prefix || st(args.mask + base + s0 + i));
       }
     }
     if (!P::kReadsEdge) {
 #pragma unroll
-      for (int i = 0; i < kSlotsPerLane; ++i) e[i] = Num<T>::zero();
+      for (int i = 0; i < kSlotsPerLane; ++i) e[i] = Num<TE>::zero();
     }
     // The active flags of the lane's slots, then the message rows of the
     // active ones: each kind of load in flight together, and no message
     // read for an inactive source.
     uint8_t a[kSlotsPerLane];
-    T m[kSlotsPerLane][QT];
+    TM m[kSlotsPerLane][QT];
 #pragma unroll
     for (int i = 0; i < kSlotsPerLane; ++i) {
       a[i] = ok[i] ? (all_active ? 1 : ro(args.active + c[i])) : 0;
@@ -354,8 +461,8 @@ __device__ __forceinline__ void warp_rows(const Args& args, int warp,
 #pragma unroll
     for (int i = 0; i < kSlotsPerLane; ++i) {
       if (a[i]) {
-        load_msg<T, QT>(msg + static_cast<long long>(c[i]) * q + q0, qn,
-                        vec_msg, m[i]);
+        load_msg<TM, QT>(msg + static_cast<long long>(c[i]) * q + q0, qn,
+                         vec_msg, m[i]);
       }
     }
 #pragma unroll
@@ -365,7 +472,8 @@ __device__ __forceinline__ void warp_rows(const Args& args, int warp,
 #pragma unroll
         for (int j = 0; j < QT; ++j) {
           if (j < qn) {
-            acc[j] = combine<T, R>(acc[j], P::apply(m[i][j], e[i], d[j]));
+            acc[j] = combine<TA, R>(
+                acc[j], convert<TA>(P::apply(m[i][j], e[i], d[j])));
           }
         }
       }
@@ -376,7 +484,7 @@ __device__ __forceinline__ void warp_rows(const Args& args, int warp,
   for (int off = lanes >> 1; off > 0; off >>= 1) {
 #pragma unroll
     for (int j = 0; j < QT; ++j) {
-      acc[j] = combine<T, R>(acc[j], __shfl_xor_sync(kFull, acc[j], off));
+      acc[j] = combine<TA, R>(acc[j], __shfl_xor_sync(kFull, acc[j], off));
     }
   }
   const unsigned ballot = __ballot_sync(kFull, got);
@@ -384,10 +492,12 @@ __device__ __forceinline__ void warp_rows(const Args& args, int warp,
       lanes == 32 ? kFull : ((1u << lanes) - 1u) << (lane & ~(lanes - 1));
   got = (ballot & group) != 0u;
   if (live) {
-    T* out = static_cast<T*>(args.y) + row * q + q0;
+    typename O::R* out = static_cast<typename O::R*>(args.y) + row * q + q0;
 #pragma unroll
     for (int j = 0; j < QT; ++j) {
-      if (j < qn && (j & (lanes - 1)) == sub) out[j] = acc[j];
+      if (j < qn && (j & (lanes - 1)) == sub) {
+        out[j] = convert<typename O::R>(acc[j]);
+      }
     }
     if (sub == 0 && tile == 0) args.recv[row] = got ? 1 : 0;
   }
@@ -401,29 +511,33 @@ __device__ __forceinline__ void warp_rows(const Args& args, int warp,
 // non-empty row would not read.  Then the 4 slots' active flags, then the
 // messages of the active sources and, unless every source is active, the
 // edge values of rows with one (most rows have none on a thin frontier).
-template <typename T, int R, typename P>
+template <typename O, int R, typename P>
 __device__ __forceinline__ void lane_row(const Args& args, int warp,
                                          int tile, int4 seg,
                                          bool all_active) {
+  using TM = typename O::M;
+  using TE = typename O::E;
+  using TD = typename O::D;
+  using TA = typename O::A;
   const long long row = seg.x +
                         static_cast<long long>(warp - seg.w) * 32 +
                         (threadIdx.x & 31);
   if (row >= seg.y) return;
   const int q = args.q;
   const bool vec = args.flags & kVecSlots;
-  const T* vals = static_cast<const T*>(args.vals);
-  const T* msg = static_cast<const T*>(args.msg);
+  const TE* vals = static_cast<const TE*>(args.vals);
+  const TM* msg = static_cast<const TM*>(args.msg);
   const long long base = row * args.width;
-  T d = Num<T>::zero();
+  TD d = Num<TD>::zero();
   if (P::kReadsDst) {
-    d = ro(static_cast<const T*>(args.dprop) + row * args.kd +
+    d = ro(static_cast<const TD*>(args.dprop) + row * args.kd +
            (args.kd == 1 ? 0 : tile));
   }
   int c[4] = {0, 0, 0, 0};
-  T e[4];
+  TE e[4];
   uint8_t mk[4] = {1, 1, 1, 1};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) e[i] = Num<T>::zero();
+  for (int i = 0; i < 4; ++i) e[i] = Num<TE>::zero();
   int end;
   if (vec && row < args.n_filled) {
     ld4<true>(args.cols + base, c);
@@ -461,11 +575,11 @@ __device__ __forceinline__ void lane_row(const Args& args, int warp,
   for (int i = 0; i < 4; ++i) {
     a[i] = (i < end && mk[i]) ? (all_active ? 1 : ro(args.active + c[i])) : 0;
   }
-  T m[4];
+  TM m[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = a[i] ? ro(msg + static_cast<long long>(c[i]) * q + tile)
-                : Num<T>::zero();
+                : Num<TM>::zero();
   }
   if (P::kReadsEdge && !all_active && (a[0] | a[1] | a[2] | a[3])) {
     if (vec) {
@@ -477,12 +591,13 @@ __device__ __forceinline__ void lane_row(const Args& args, int warp,
       }
     }
   }
-  T acc = identity<T, R>();
+  TA acc = identity<TA, R>();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    if (a[i]) acc = combine<T, R>(acc, P::apply(m[i], e[i], d));
+    if (a[i]) acc = combine<TA, R>(acc, convert<TA>(P::apply(m[i], e[i], d)));
   }
-  static_cast<T*>(args.y)[row * q + tile] = acc;
+  static_cast<typename O::R*>(args.y)[row * q + tile] =
+      convert<typename O::R>(acc);
   if (tile == 0) args.recv[row] = (a[0] | a[1] | a[2] | a[3]) ? 1 : 0;
 }
 
@@ -492,7 +607,7 @@ __device__ __forceinline__ void lane_row(const Args& args, int warp,
 // each warp of rows, for tables whose rows are all in the one-lane class.
 // Then the grid's warps walk the warps of rows in turn, one query tile
 // after another.
-template <typename T, int R, typename P, int QT, bool COOP>
+template <typename O, int R, typename P, int QT, bool COOP>
 __global__ void ell_spmv_kernel(const Args args) {
   const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -534,20 +649,20 @@ __global__ void ell_spmv_kernel(const Args args) {
         seg = __ldg(args.segs + lo);
       }
       if (QT == 1 && seg.z == 1) {
-        lane_row<T, R, P>(args, warp, tile, seg, all_active);
+        lane_row<O, R, P>(args, warp, tile, seg, all_active);
       } else {
-        warp_rows<T, R, P, QT>(args, warp, tile, seg, all_active);
+        warp_rows<O, R, P, QT>(args, warp, tile, seg, all_active);
       }
     }
   }
 }
 
-template <typename T, int R, typename P, int QT>
+template <typename O, int R, typename P, int QT>
 cudaError_t launch_coop(const Args& a, cudaStream_t stream) {
   // As many blocks as can be resident at once (a cooperative launch
   // refuses more), and no more than the rows need.  The card's size and
   // the kernel's occupancy are asked once per device and block size.
-  const auto kernel = ell_spmv_kernel<T, R, P, QT, true>;
+  const auto kernel = ell_spmv_kernel<O, R, P, QT, true>;
   const dim3 block(32 * a.warps_per_block);
   static int cached_dev = -1, cached_threads = 0, resident = 0;
   int dev = 0;
@@ -570,36 +685,157 @@ cudaError_t launch_coop(const Args& a, cudaStream_t stream) {
                                      dim3(blocks), block, params, 0, stream);
 }
 
-template <typename T, int R, typename P>
+template <typename O, int R, typename P>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  if (a.q_tile != 1) return launch_coop<T, R, P, 8>(a, stream);
-  if (!(a.flags & kShortRows)) return launch_coop<T, R, P, 1>(a, stream);
+  if (a.q_tile != 1) return launch_coop<O, R, P, 8>(a, stream);
+  if (!(a.flags & kShortRows)) return launch_coop<O, R, P, 1>(a, stream);
   // Every row of at most 4 slots: a plain launch, a warp for each 32 rows.
   const int needed = (a.num_warps + a.warps_per_block - 1) /
                      a.warps_per_block;
-  ell_spmv_kernel<T, R, P, 1, false>
+  ell_spmv_kernel<O, R, P, 1, false>
       <<<needed, 32 * a.warps_per_block, 0, stream>>>(a);
   return cudaSuccess;
+}
+
+// The lane-vector grid, for a process P that mixes the lanes of a K-lane
+// message: a group of P::kGroup threads a packed row (rows in turn over
+// the grid), each holding P::kPer of a message's lanes (lane sub + G * j).
+// For each 4 of the row's slots the group loads cols (and vals, and the
+// mask where it is read) together, then the 4 sources' active flags, then
+// its lanes of the active sources' messages, then applies P and
+// accumulates its share of the K_out results.  All threads of a group walk
+// the same slots, so the functor's shuffles (mask `group`) see the whole
+// group.
+template <typename O, int R, typename P>
+__global__ void lanes_kernel(const Args args) {
+  using TM = typename O::M;
+  using TE = typename O::E;
+  using TD = typename O::D;
+  using TA = typename O::A;
+  using TR = typename O::R;
+  constexpr int G = P::kGroup;
+  constexpr int L = P::kPer;
+  constexpr int K = P::kLanes;
+  constexpr int OL = P::kOut == 1 ? 1 : L;
+  constexpr int DL = P::kDstLanes == 1 ? 1 : L;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  const unsigned group =
+      G == 32 ? kFull : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const long long groups = static_cast<long long>(gridDim.x) * blockDim.x / G;
+  const bool prefix = args.flags & kMaskIsPrefix;
+  const bool vec_slots = args.flags & kVecSlots;
+  const TE* vals = static_cast<const TE*>(args.vals);
+  const TM* msg = static_cast<const TM*>(args.msg);
+  for (long long row =
+           (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+       row < args.n_rows; row += groups) {
+    TD d[DL];
+#pragma unroll
+    for (int j = 0; j < DL; ++j) {
+      const int k = P::kDstLanes == 1 ? 0 : sub + G * j;
+      d[j] = (P::kReadsDst && k < K)
+                 ? ro(static_cast<const TD*>(args.dprop) + row * args.kd + k)
+                 : Num<TD>::zero();
+    }
+    TA acc[OL];
+#pragma unroll
+    for (int j = 0; j < OL; ++j) acc[j] = identity<TA, R>();
+    bool got = false;
+    const int end = st(args.row_end + row);
+    const long long base = row * args.width;
+    for (int s0 = 0; s0 < end; s0 += 4) {
+      int c[4];
+      TE e[4];
+      bool ok[4];
+      if (vec_slots) {  // s0 + 3 < width
+        uint8_t mk[4] = {1, 1, 1, 1};
+        ld4<true>(args.cols + base + s0, c);
+        if (P::kReadsEdge) ld4<true>(vals + base + s0, e);
+        if (!prefix) ld4<true>(args.mask + base + s0, mk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ok[i] = s0 + i < end && mk[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool in = s0 + i < end;
+          c[i] = in ? st(args.cols + base + s0 + i) : 0;
+          if (P::kReadsEdge) {
+            e[i] = in ? st(vals + base + s0 + i) : Num<TE>::zero();
+          }
+          ok[i] = in && (prefix || st(args.mask + base + s0 + i));
+        }
+      }
+      if (!P::kReadsEdge) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) e[i] = Num<TE>::zero();
+      }
+      uint8_t a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ok[i] ? ro(args.active + c[i]) : 0;
+      TM m[4][L];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          const int k = sub + G * j;
+          m[i][j] = (a[i] && k < K)
+                        ? ro(msg + static_cast<long long>(c[i]) * K + k)
+                        : Num<TM>::zero();
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (a[i]) {  // the same on every thread of the group
+          got = true;
+          TR r[OL];
+          P::apply(m[i], e[i], d, r, sub, group);
+#pragma unroll
+          for (int j = 0; j < OL; ++j) {
+            acc[j] = combine<TA, R>(acc[j], convert<TA>(r[j]));
+          }
+        }
+      }
+    }
+    TR* y = static_cast<TR*>(args.y);
+    if (P::kOut == 1) {
+      if (sub == 0) y[row] = convert<TR>(acc[0]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        const int k = sub + G * j;
+        if (k < K) y[row * K + k] = convert<TR>(acc[j]);
+      }
+    }
+    if (sub == 0) args.recv[row] = got ? 1 : 0;
+  }
 }
 
 // Validates the arguments, makes the stream's device current, launches on
 // `stream` and returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take).  Any error
 // left pending by earlier work is cleared first, so the code returned
-// belongs to this launch.
-template <typename T, int R, typename P>
+// belongs to this launch.  LANES: the lane-vector grid (a plain launch of
+// a group of threads for each packed row), for a lane-mixing P.
+template <typename O, int R, typename P, bool LANES = false>
 int run_ell(const void* cols, const void* vals, const void* mask,
             const void* msg, const void* active, const void* dprop,
             const void* row_end, const void* segs, void* y, void* recv,
             void* sync, int n_src, int nseg, int num_warps, int width, int q,
             int q_tile, int kd, int flags, int warps_per_block, int n_filled,
-            int device, void* stream) {
-  if (sync == nullptr || n_src < 1 || nseg < 1 || num_warps < 1 ||
-      width < 1 || q < 1 || q_tile < 1 || q_tile > 8 ||
-      warps_per_block < 1 || warps_per_block > 32 || n_filled < 0 ||
-      (P::kReadsDst && (dprop == nullptr || (kd != 1 && kd != q)))) {
-    return static_cast<int>(cudaErrorInvalidValue);
+            int n_rows, int device, void* stream) {
+  bool bad;
+  if constexpr (LANES) {
+    bad = n_src < 1 || n_rows < 1 || width < 1 || q != P::kLanes ||
+          warps_per_block < 1 || warps_per_block > 32 ||
+          (P::kReadsDst && (dprop == nullptr || kd != P::kDstLanes));
+  } else {
+    bad = sync == nullptr || n_src < 1 || nseg < 1 || num_warps < 1 ||
+          width < 1 || q < 1 || q_tile < 1 || q_tile > 8 ||
+          warps_per_block < 1 || warps_per_block > 32 || n_filled < 0 ||
+          (P::kReadsDst && (dprop == nullptr || (kd != 1 && kd != q)));
   }
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
   // The launch goes to the stream's device, made current for it.
   int current = 0;
   if (cudaGetDevice(&current) != cudaSuccess) {
@@ -615,8 +851,18 @@ int run_ell(const void* cols, const void* vals, const void* mask,
                static_cast<const int*>(row_end),
                static_cast<const int4*>(segs), y, static_cast<int8_t*>(recv),
                static_cast<unsigned*>(sync), n_src, nseg, num_warps, width,
-               q, q_tile, kd, flags, warps_per_block, n_filled};
-  cudaError_t err = launch<T, R, P>(a, static_cast<cudaStream_t>(stream));
+               q, q_tile, kd, flags, warps_per_block, n_filled, n_rows};
+  cudaError_t err = cudaSuccess;
+  if constexpr (LANES) {
+    const int threads = 32 * warps_per_block;
+    const long long blocks =
+        (static_cast<long long>(n_rows) * P::kGroup + threads - 1) / threads;
+    lanes_kernel<O, R, P>
+        <<<static_cast<unsigned>(blocks < 0x7fffffffLL ? blocks : 0x7fffffff),
+           threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  } else {
+    err = launch<O, R, P>(a, static_cast<cudaStream_t>(stream));
+  }
   if (err == cudaSuccess) err = cudaGetLastError();
   if (current != device) cudaSetDevice(current);
   return static_cast<int>(err);

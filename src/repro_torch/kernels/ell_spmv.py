@@ -18,8 +18,11 @@ The per-edge process is the functor the kernel is templated on: a
 :class:`~repro_torch.kernels.process_expr.ProcessExpr` is a program's own
 ``process_message``, traced (as ``ell_spmv_pallas`` traces it into its
 body).  A traced process that equals a shipped form node for node runs the
-shipped instance; any other gets an instance of its own, for its dtype and
-reduce (:func:`library_for`).
+shipped instance; any other gets an instance of its own, for its operand
+dtypes and reduce (:func:`library_for`).  The result has the trace's dtype
+and width: ``[n_pad, K_out]``, K_out = Q for a lanewise process, 1 or K for
+one that mixes the lanes of a ``[n_src, K]`` message, which runs on the
+kernel's lane-vector grid (K up to ``process_expr.MAX_LANES``).
 
 The shipped library is built with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at its first launch, into ``build/`` at
@@ -51,7 +54,8 @@ from repro_torch.core.graph import ell_extent
 from repro_torch.core.vertex_program import (DST_FORMS, PROCESS_FORMS,
                                              PROCESS_OPS)
 from repro_torch.kernels._build import CudaLibrary
-from repro_torch.kernels.process_expr import DTYPES, ProcessExpr
+from repro_torch.kernels.process_expr import (CTYPES, KINDS, MAX_LANES,
+                                              SHIPPED_DTYPES, ProcessExpr)
 from repro_torch.kernels.ref import ell_spmv_ref
 
 # The forms that read vals.
@@ -59,7 +63,9 @@ EDGE_OPS = ("msg_plus_edge", "msg_times_edge", "edge_minus_msg_dst_times_msg")
 # Codes passed to the C function; the orders match the enums in the source.
 _OP_CODE = {op: i for i, op in enumerate(PROCESS_OPS)}
 _REDUCE_CODE = {"add": 0, "min": 1, "max": 2}
-_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.int32: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.int32: 2,
+               torch.bfloat16: 3, torch.int8: 4, torch.int16: 5,
+               torch.uint8: 6}
 # Launch flags, as the source's Flags enum.
 _MASK_IS_PREFIX, _VEC_SLOTS, _VEC_MSG, _VEC_ACTIVE = 1, 2, 4, 8
 _SHORT_ROWS = 16
@@ -82,16 +88,19 @@ SEGMENT_CHUNK = 32
 
 @functools.lru_cache(maxsize=None)
 def config_key(q: int, dtype: torch.dtype, reduce_kind: str,
-               process_op: str) -> str:
-  """The launch counter's key for one kernel instance and grid."""
-  grid = "q1" if q == 1 else "qtiled"
+               process_op: str, lanes: bool = False) -> str:
+  """The launch counter's key for one kernel instance and grid: the grid
+  (``q1``, ``qtiled``, or ``lanes`` for the lane-vector grid), the
+  message dtype, the reduce and the instance's name (a traced instance's
+  name hashes its every operand dtype and K_out)."""
+  grid = "lanes" if lanes else ("q1" if q == 1 else "qtiled")
   return f"{grid}/{str(dtype).replace('torch.', '')}/{reduce_kind}/{process_op}"
 
 
 class LaunchCounter:
   """Kernel launches, counted where the wrapper launches the kernel, by
-  :func:`config_key`: ``single`` for the Q = 1 grid, ``multi`` for the
-  query-tiled grid."""
+  :func:`config_key`: ``single`` for the single-query grids (Q = 1 and the
+  lane-vector grid), ``multi`` for the query-tiled grid."""
 
   def __init__(self):
     self.by_config: Dict[str, int] = {}
@@ -101,7 +110,8 @@ class LaunchCounter:
 
   @property
   def single(self) -> int:
-    return sum(v for k, v in self.by_config.items() if k.startswith("q1/"))
+    return sum(v for k, v in self.by_config.items()
+               if k.startswith(("q1/", "lanes/")))
 
   @property
   def multi(self) -> int:
@@ -121,19 +131,19 @@ launches = LaunchCounter()
 
 def _bind(lib: ctypes.CDLL) -> None:
   fn = lib.graphmat_ell_spmv
-  fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 14
+  fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 19
                  + [ctypes.c_void_p])
   fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("ell_spmv.cu", _bind)
 
-# A generated instance: the body over one traced process, for one dtype and
-# reduce, with the shipped library's C entry point (dtype and reduce
-# checked, op ignored).
+# A generated instance: the body over one traced process, for its operand
+# dtypes and one reduce, with the shipped library's C entry point (dtypes,
+# K_out and reduce checked, op ignored).
 _GENERATED_SOURCE = """\
 // The ELL kernel of ell_spmv_body.cuh over one traced process_message, for
-// {dtype} and the {reduce} reduce (written by kernels/ell_spmv.py).
+// {what} and the {reduce} reduce (written by kernels/ell_spmv.py).
 #include "ell_spmv_body.cuh"
 
 namespace {{
@@ -148,33 +158,55 @@ extern "C" int graphmat_ell_spmv(const void* cols, const void* vals,
                                  int n_src, int nseg,
                                  int num_warps, int width, int q, int q_tile,
                                  int kd, int flags, int warps_per_block,
-                                 int n_filled, int dtype, int reduce, int op,
-                                 int device, void* stream) {{
+                                 int n_filled, int n_rows, int dtype,
+                                 int edge_dtype, int dst_dtype, int out_dtype,
+                                 int k_out, int reduce, int op, int device,
+                                 void* stream) {{
   (void)op;
-  if (dtype != {dtype_code} || reduce != {reduce_code}) {{
+  (void)edge_dtype;
+  (void)dst_dtype;
+  if ({checks}) {{
     return static_cast<int>(cudaErrorInvalidValue);
   }}
-  return run_ell<{ctype}, {reduce_code}, TracedProcess>(
+  return run_ell<Operands<{types}>, {reduce_code}, TracedProcess{lanes}>(
       cols, vals, mask, msg, active, dprop, row_end, segs, y, recv, sync,
       n_src, nseg, num_warps, width, q, q_tile, kd, flags, warps_per_block,
-      n_filled, device, stream);
+      n_filled, n_rows, device, stream);
 }}
 
 extern "C" const char* graphmat_cuda_error_string(int code) {{
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }}
 """
-_CTYPE = {torch.float32: "float", torch.float16: "__half", torch.int32: "int"}
 _generated: Dict[Tuple[str, str], CudaLibrary] = {}
 _generated_lock = threading.Lock()
 
 
 def generated_source(process: ProcessExpr, reduce_kind: str) -> str:
   """The CUDA source of ``process``'s instance for ``reduce_kind``."""
+  m = process.dtype
+  e, d = process.edge_dtype or m, process.dst_dtype or m
+  r = process.out_dtype
+  # A half or bfloat16 result is summed in float and rounded once.
+  acc = "float" if r in (torch.float16, torch.bfloat16) else CTYPES[KINDS[r]]
+  checks = [f"dtype != {_DTYPE_CODE[m]}", f"out_dtype != {_DTYPE_CODE[r]}",
+            f"reduce != {_REDUCE_CODE[reduce_kind]}",
+            (f"k_out != {process.k_out}" if process.lane_mixing
+             else "k_out != q")]
+  if process.edge_dtype is not None:
+    checks.insert(1, f"edge_dtype != {_DTYPE_CODE[e]}")
+  if process.dst_dtype is not None:
+    checks.insert(2, f"dst_dtype != {_DTYPE_CODE[d]}")
+  what = (KINDS[m] if process.uniform else
+          " x ".join(KINDS[t] for t in (m, e, d)) + f" -> {KINDS[r]}")
+  if process.lane_mixing:
+    what += f", K = {process.lanes} lanes mixed, K_out = {process.k_out}"
   return _GENERATED_SOURCE.format(
-      dtype=DTYPES[process.dtype], reduce=reduce_kind,
-      functor=process.functor_source(), dtype_code=_DTYPE_CODE[process.dtype],
-      reduce_code=_REDUCE_CODE[reduce_kind], ctype=_CTYPE[process.dtype])
+      what=what, reduce=reduce_kind, functor=process.functor_source(),
+      checks=" ||\n      ".join(checks),
+      types=", ".join(CTYPES[KINDS[t]] for t in (m, e, d, r)) + f", {acc}",
+      reduce_code=_REDUCE_CODE[reduce_kind],
+      lanes=", true" if process.lane_mixing else "")
 
 
 def library_for(process: Union[str, ProcessExpr],
@@ -298,27 +330,36 @@ def takes(msg: torch.Tensor, vals: torch.Tensor,
           process: Union[str, ProcessExpr], reduce_kind: str,
           dprop: Optional[torch.Tensor] = None) -> bool:
   """Whether the kernel takes messages ``msg`` ([n] or [n, Q]) with this
-  process (a form name, or a process traced at ``msg``'s dtype) and
-  reduce; a process that reads the edge needs ``vals`` in ``msg``'s dtype,
-  and one that reads the destination property needs ``dprop`` in it too,
-  shaped as ``msg`` is: [n] with [n], [n, 1] or [n, Q] with [n, Q] (the
-  shapes whose broadcast is lane by lane)."""
-  if isinstance(process, ProcessExpr):
-    if process.dtype != msg.dtype:
-      return False
-  elif process not in PROCESS_FORMS:
+  process and reduce.  A form name takes one shipped dtype for the
+  message, the edge values it reads and the destination property; a
+  traced process takes the dtypes and widths it was traced at.  A process
+  that reads the destination property needs ``dprop`` shaped as ``msg`` is:
+  [n] with [n], [n, 1] or [n, Q] with [n, Q] (a lane-mixing one: the width
+  it was traced at)."""
+  if reduce_kind not in _REDUCE_CODE or msg.ndim > 2:
     return False
   reads_edge, reads_dst = _reads(process)
-  if not (reduce_kind in _REDUCE_CODE and msg.ndim <= 2
-          and msg.dtype in _DTYPE_CODE
-          and (not reads_edge or vals.dtype == msg.dtype)):
+  if isinstance(process, ProcessExpr):
+    edge_dtype, dst_dtype = process.edge_dtype, process.dst_dtype
+    if process.dtype != msg.dtype or process.lane != (msg.ndim == 2):
+      return False
+    if process.lane_mixing and not (msg.shape[1] == process.lanes
+                                    and process.lanes <= MAX_LANES):
+      return False
+  else:
+    edge_dtype = dst_dtype = msg.dtype
+    if process not in PROCESS_FORMS or msg.dtype not in SHIPPED_DTYPES:
+      return False
+  if reads_edge and vals.dtype != edge_dtype:
     return False
   if not reads_dst:
     return True
   q = msg.shape[1] if msg.ndim == 2 else 1
-  return (dprop is not None and dprop.dtype == msg.dtype
+  widths = ((process.dst_lanes,) if isinstance(process, ProcessExpr)
+            and process.lane_mixing else (1, q))
+  return (dprop is not None and dprop.dtype == dst_dtype
           and dprop.ndim == msg.ndim and dprop.shape[0] == msg.shape[0]
-          and (dprop.ndim == 1 or dprop.shape[1] in (1, q)))
+          and (dprop.ndim == 1 or dprop.shape[1] in widths))
 
 
 def _check(cond: bool, what: str, *args) -> None:
@@ -343,21 +384,24 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
              block_rows: Optional[int] = None,
              block_queries: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """``(y [n_pad, Q], recv int8[n_pad])`` for one ELL block.
+  """``(y [n_pad, K_out], recv int8[n_pad])`` for one ELL block.
 
   Args:
     cols: int32[n_pad, W] source ids; vals [n_pad, W]; mask bool[n_pad, W].
-    msg: [n_src, Q] messages (Q = 1 for a single query), float32, float16
-      or int32; y has its dtype.
+    msg: [n_src, Q] messages (Q = 1 for a single query).
     active: bool[n_src] source frontier.
-    process_op: a key of :data:`PROCESS_FORMS` (a shipped form), or
-    process: a program's ``process_message`` traced at ``msg``'s dtype
-      (:func:`repro_torch.kernels.process_expr.trace`); one of the two.  A
-      process that reads the edge needs ``vals`` in ``msg``'s dtype.
+    process_op: a key of :data:`PROCESS_FORMS` (a shipped form: the
+      message, the edge values it reads, dprop and y all float32, float16
+      or int32), or
+    process: a program's ``process_message`` traced at the operands'
+      dtypes and widths (:func:`repro_torch.kernels.process_expr.trace`);
+      one of the two.  y has its result dtype and width K_out (Q for a
+      lanewise process).
     reduce_kind: add | min | max.
     dprop: [n_pad, Kd] destination properties in packed-row order, Kd = 1
-      or Q, in ``msg``'s dtype: given for a process that reads it
-      (:data:`DST_FORMS`, or a trace that reads ``d``) and only for one.
+      or Q (a lane-mixing process: the Kd it was traced at): given for a
+      process that reads it (:data:`DST_FORMS`, or a trace that reads
+      ``d``) and only for one.
     row_end, mask_prefix: the mask's :func:`ell_extent` (an
       :class:`EllGraph` carries both); computed from the mask, with a read
       back to the host, unless both are given.
@@ -365,17 +409,20 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
       keeps one per graph); computed, with a read back, when not given.
     block_rows: warps per thread block, 1..32.
     block_queries: query tile, 1..8 (default: the largest divisor of Q that
-      is at most 8).
+      is at most 8); a lane-mixing process takes the whole row.
   """
   if process is None:
     _check(process_op in PROCESS_FORMS, "unknown process_op {!r}",
            process_op)
-    name = process_op
+    name, lanes = process_op, False
+    edge_dtype = dst_dtype = out_dtype = msg.dtype
   else:
     _check(process_op is None, "give process_op or process, not both")
     _check(process.dtype == msg.dtype, "process traced at {}, msg is {}",
            process.dtype, msg.dtype)
-    name = process.name
+    name, lanes = process.name, process.lane_mixing
+    edge_dtype, dst_dtype = process.edge_dtype, process.dst_dtype
+    out_dtype = process.out_dtype
   reads_edge, reads_dst = _reads(process_op if process is None else process)
   _check(reduce_kind in _REDUCE_CODE, "reduce_kind {!r}", reduce_kind)
   _check(cols.ndim == 2 and vals.shape == cols.shape
@@ -384,14 +431,22 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
          "msg must be [n_src, Q] and active [n_src]")
   n_pad, width = cols.shape
   q = msg.shape[1]
+  if lanes:
+    _check(q == process.lanes and q <= MAX_LANES,
+           "{} mixes the lanes of K = {} messages (at most {}); msg has {}",
+           name, process.lanes, MAX_LANES, q)
+  k_out = process.k_out if lanes else q
   if reads_dst:
+    kds = (process.dst_lanes,) if lanes else (1, q)
     _check(dprop is not None and dprop.ndim == 2
-           and dprop.shape[0] == n_pad and dprop.shape[1] in (1, q),
-           "{} needs dprop [n_pad, 1] or [n_pad, Q]", name)
-    _check(dprop.dtype == msg.dtype, "dprop must have msg's dtype {}",
-           msg.dtype)
+           and dprop.shape[0] == n_pad and dprop.shape[1] in kds,
+           "{} needs dprop [n_pad, Kd] with Kd in {}", name, kds)
+    _check(dprop.dtype == dst_dtype, "{} needs dprop of dtype {}, not {}",
+           name, dst_dtype, dprop.dtype)
   else:
     _check(dprop is None, "{} reads no dprop", name)
+  _check(not reads_edge or vals.dtype == edge_dtype,
+         "{} needs vals of dtype {}, not {}", name, edge_dtype, vals.dtype)
   tensors = (cols, vals, mask, msg, active) + (
       () if dprop is None else (dprop,))
   if not any(t.is_cuda for t in tensors):
@@ -408,13 +463,14 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
   _check(cols.dtype == torch.int32, "cols must be int32")
   _check(mask.dtype == torch.bool and active.dtype == torch.bool,
          "mask and active must be bool")
-  _check(msg.dtype in _DTYPE_CODE, "msg dtype {} not supported", msg.dtype)
-  _check(not reads_edge or vals.dtype == msg.dtype,
-         "{} needs vals in msg's dtype {}", name, msg.dtype)
+  _check(msg.dtype in _DTYPE_CODE and (process is not None
+                                       or msg.dtype in SHIPPED_DTYPES),
+         "msg dtype {} not supported", msg.dtype)
   _check(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")
   warps = DEFAULT_BLOCK_ROWS if block_rows is None else int(block_rows)
   _check(1 <= warps <= 32, "block_rows={} must be in 1..32", warps)
-  tile = 1 if q == 1 else min(int(block_queries or _pick_query_tile(q)), q)
+  tile = 1 if q == 1 or lanes else min(
+      int(block_queries or _pick_query_tile(q)), q)
   _check(1 <= tile <= MAX_QUERY_TILE, "block_queries={} must be in 1..{}",
          tile, MAX_QUERY_TILE)
   if row_end is None or mask_prefix is None:
@@ -429,10 +485,9 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
          "row_end must be int32[n_pad] and segments its table, on the "
          "mask's device")
 
-  size = msg.element_size()
   flags = _MASK_IS_PREFIX if mask_prefix else 0
-  if (width % 4 == 0 and _aligned(cols, 16) and _aligned(vals, 4 * size)
-      and _aligned(mask, 4)):
+  if (width % 4 == 0 and _aligned(cols, 16) and _aligned(mask, 4)
+      and (not reads_edge or _aligned(vals, 4 * vals.element_size()))):
     flags |= _VEC_SLOTS
   if q % 4 == 0 and tile % 4 == 0 and _aligned(msg, 16):
     flags |= _VEC_MSG
@@ -442,7 +497,7 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     flags |= _SHORT_ROWS
   library = LIBRARY if process is None else library_for(process, reduce_kind)
   lib = library.load()
-  y = msg.new_empty((n_pad, q))
+  y = torch.empty((n_pad, k_out), dtype=out_dtype, device=cols.device)
   recv = cols.new_empty((n_pad,), dtype=torch.int8)
   stream = torch._C._cuda_getCurrentRawStream(index)
   rc = lib.graphmat_ell_spmv(
@@ -451,10 +506,13 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
       row_end.data_ptr(), table.data_ptr(), y.data_ptr(), recv.data_ptr(),
       _sync_words(index, stream).data_ptr(), msg.shape[0], table.shape[0],
       num_warps, width, q, tile, 1 if dprop is None else dprop.shape[1],
-      flags, warps, segments.filled_rows, _DTYPE_CODE[msg.dtype],
-      _REDUCE_CODE[reduce_kind], _OP_CODE.get(name, 0), index, stream)
+      flags, warps, segments.filled_rows, n_pad, _DTYPE_CODE[msg.dtype],
+      _DTYPE_CODE[vals.dtype] if reads_edge else -1,
+      _DTYPE_CODE[dprop.dtype] if reads_dst else -1,
+      _DTYPE_CODE[out_dtype], k_out, _REDUCE_CODE[reduce_kind],
+      _OP_CODE.get(name, 0), index, stream)
   library.check(rc, "ell_spmv")
-  launches.add(config_key(q, msg.dtype, reduce_kind, name))
+  launches.add(config_key(q, msg.dtype, reduce_kind, name, lanes))
   return y, recv
 
 

@@ -29,20 +29,26 @@ def spmv_ell_cuda(g: graphlib.EllGraph, msg: PyTree, active: torch.Tensor,
 
   Takes what the reference's ``spmv_ell_pallas`` takes
   (``src/repro/core/spmv.py::_pallas_eligible``): a single-leaf scalar
-  (``[n]``) or query-lane (``[n, Q]``) message, an add/min/max reduce and,
+  (``[n]``) or vector (``[n, K]``) message, an add/min/max reduce and,
   when the program reads the destination property, one leaf of it.  The
-  per-edge function is the program's ``process_op`` (a shipped form) or,
-  without one, its own ``process_message``, traced
-  (:func:`repro_torch.kernels.process_expr.for_program`): a per-lane
-  expression over one dtype among float32, float16 and int32.  A process
-  that reads the destination property takes it shaped as the message is
-  (``[n]``, or ``[n, Kd]`` with Kd = 1 or Q), un-permuted into packed-row
-  order as the reference's ``spmv_ell_pallas`` does.  Raises otherwise,
-  naming the reason, as the reference asserts.  A process acts lane by
-  lane, so a ``[n, Q]`` message always runs as the query-tiled SpMM, with
-  the tile from ``block_queries`` or the kernel's default.  ``segments`` is
-  the graph's :func:`~repro_torch.kernels.ell_spmv.row_segments`, computed
-  when not given.
+  per-edge function is the program's ``process_op`` (a shipped form, where
+  the shipped library has the call's dtypes) or its own
+  ``process_message``, traced at the call's dtypes and widths
+  (:func:`repro_torch.kernels.process_expr.for_program`): lanewise, or
+  mixing the lanes of a ``[n, K]`` message (K up to 256), over float32,
+  float16, bfloat16 and the integer types up to int32, mixed as torch
+  promotes them.  A process that reads the destination property takes it
+  shaped as the message is (``[n]``, or ``[n, Kd]`` with Kd = 1 or K), in
+  its own dtype, un-permuted into packed-row order as the reference's
+  ``spmv_ell_pallas`` does.  Raises otherwise, naming the reason, as the
+  reference asserts.  A lanewise process on a ``[n, Q]`` message runs as
+  the query-tiled SpMM, with the tile from ``block_queries`` or the
+  kernel's default; a lane-mixing one on the lane-vector grid.  The result
+  is squeezed by its own rank, as the reference's is (``ops.py:59-64``,
+  ``:92``): a ``[n, K]`` message with an ``[E]`` result gives ``y [n]``,
+  with an ``[E, 1]`` one ``y [n, 1]``.  ``segments`` is the graph's
+  :func:`~repro_torch.kernels.ell_spmv.row_segments`, computed when not
+  given.
   """
   if block_slots is not None:
     raise ValueError("cuda_ell: the kernel has no slot tiling (block_slots)")
@@ -75,6 +81,9 @@ def spmv_ell_cuda(g: graphlib.EllGraph, msg: PyTree, active: torch.Tensor,
                          row_end=g.row_end, mask_prefix=g.mask_prefix,
                          segments=segments, block_rows=block_rows,
                          block_queries=block_queries)
-  y_packed = _tree.tree_unflatten(treedef, [y2[:, 0] if scalar_msg else y2])
+  scalar_result = scalar_msg or (
+      isinstance(process, process_expr.ProcessExpr) and process.squeezed)
+  y_packed = _tree.tree_unflatten(treedef,
+                                  [y2[:, 0] if scalar_result else y2])
   y, recv = _unpermute(g, y_packed, recv_i8 != 0)
   return merge_spill(g, y, recv, msg, active, dst_prop, program)

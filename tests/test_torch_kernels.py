@@ -185,15 +185,24 @@ def test_cuda_ell_rejects_what_the_kernel_does_not_take(rmat_small):
                            reduce_kind="add")
   assert tbe.resolve(tbe.AUTO_PLAN, g, msg, msg, reads_dst).name == \
       "cuda_ell"
-  # What it refuses, by reason: a process that mixes the lanes of a
-  # [n, Q] message, and a destination property of two leaves.
+  # A process that mixes the lanes of a [n, K] message runs on the
+  # kernel's lane-vector grid, as the reference's reaches Pallas.
   lanes = torch.rand(n, 4)
   mixing = GraphProgram(
       process_message=lambda m, e, d: m * m.sum(-1, keepdim=True),
       reduce_kind="add", process_reads_dst=False)
-  with pytest.raises(ValueError, match="reduces across the lane axis"):
-    tspmv.spmv(g, lanes, act, lanes, mixing, backend=plan)
-  assert tbe.resolve(tbe.AUTO_PLAN, g, lanes, lanes, mixing).name == "ell"
+  assert tbe.resolve(tbe.AUTO_PLAN, g, lanes, lanes, mixing).name == \
+      "cuda_ell"
+  y, _ = tspmv.spmv(g, lanes, act, lanes, mixing, backend=plan)
+  y_ell, _ = tspmv.spmv(g, lanes, act, lanes, mixing,
+                        backend=tbe.Plan("ell"))
+  torch.testing.assert_close(y, y_ell, rtol=1e-5, atol=1e-5)
+  # What it refuses, by reason: lanes of a message wider than that grid
+  # takes, and a destination property of two leaves.
+  wide = torch.rand(n, 300)
+  with pytest.raises(ValueError, match="K up to 256"):
+    tspmv.spmv(g, wide, act, wide, mixing, backend=plan)
+  assert tbe.resolve(tbe.AUTO_PLAN, g, wide, wide, mixing).name == "ell"
   two_leaves = {"a": msg, "b": msg}
   with pytest.raises(ValueError, match="single-leaf destination property"):
     tspmv.spmv(g, msg, act, two_leaves, reads_dst, backend=plan)
@@ -208,13 +217,19 @@ def test_cuda_ell_rejects_what_the_kernel_does_not_take(rmat_small):
                backend=tbe.Plan(backend="cuda_ell", block_slots=8))
   with pytest.raises(ValueError):
     GraphProgram(process_message=lambda m, e, d: m, process_op="msg_squared")
-  # Edge forms need vals in the message's dtype: int32 SSSP-style messages
-  # on float edges stay on the torch ELL path.
+  # An edge form over mixed dtypes (int32 messages on float edges) is no
+  # shipped instance: its form is traced into one of its own, whose float32
+  # result is torch's promotion, as on the torch ELL path.
   int_edge = GraphProgram(reduce_kind="min", process_op="msg_plus_edge")
   assert int_edge.process_message is PROCESS_FORMS["msg_plus_edge"]
   assert not int_edge.process_reads_dst
-  assert tbe.resolve(tbe.AUTO_PLAN, g, msg.int(), msg.int(),
-                     int_edge).name == "ell"
+  imsg = (msg * 100).int()
+  assert tbe.resolve(tbe.AUTO_PLAN, g, imsg, imsg, int_edge).name == \
+      "cuda_ell"
+  y, _ = tspmv.spmv(g, imsg, act, imsg, int_edge, backend=plan)
+  y_ell, _ = tspmv.spmv(g, imsg, act, imsg, int_edge,
+                        backend=tbe.Plan("ell"))
+  assert y.dtype == torch.float32 and torch.equal(y, y_ell)
 
 
 def test_wrapper_rejects_bad_launch_arguments():

@@ -7,10 +7,13 @@ Here, on the CPU:
 
 * the expression, evaluated in torch, equals the callable bitwise for
   float32, float16 and int32, scalar and ``[n, Q]``;
-* the refusals, each with its reason (lane mixing, ``K_out != K``, mixed
-  dtypes, control flow, captured tensors, unknown ops, a generic reduce):
-  structural auto resolves them to ``ell`` and an explicit
-  ``Plan("cuda_ell")`` raises;
+* the refusals, each with its reason (int64 and float64 values, a bool
+  result, a destination property of a width other than 1 or K, a lane
+  slice of another width, control flow, captured tensors, unknown ops, a
+  generic reduce): structural auto resolves them to ``ell`` and an
+  explicit ``Plan("cuda_ell")`` raises; the processes refused before the
+  kernel took lane mixing, ``K_out = 1`` and mixed dtypes, now taken and
+  run;
 * the five shipped forms' reference lambdas map onto their forms, and
   ``e + m`` does not;
 * parity with the reference: the same numpy inputs through the reference's
@@ -18,8 +21,9 @@ Here, on the CPU:
   with the JAX lambda and through ``spmv_ell_cuda`` on CPU tensors (the
   plain version, running the torch lambda); a whole widest-path run with
   ``Plan("cuda_ell")`` against the reference engine with ``Plan("pallas")``;
-* the generated CUDA functors for float32 and int32, compiled for the host
-  with a small shim where a C++ compiler is found, against the expression.
+* the generated CUDA functors for float32 and int32 and for processes that
+  mix the two, compiled for the host with a small shim where a C++ compiler
+  is found, against the expression.
 
 Tolerances: min, max and int32 bitwise; float add rtol 1e-5 (the sums run
 in different orders).  The host shim: bitwise, except ``exp``, ``log`` and
@@ -153,18 +157,19 @@ def test_reads_and_dst_zero_when_not_read():
   assert full.reads_dst and full != expr
 
 
-REFUSALS = {  # name -> (callable, message dtype, lane, reason fragment)
-    "lane_mixing": (lambda m, e, d: m * m.sum(-1, keepdim=True), F, True,
-                    "reduces across the lane axis"),
-    "k_out": (lambda m, e, d: m[..., :2] + e, F, True,
-              "indexes or reshapes across the lane axis"),
-    "k_out_shape": (lambda m, e, d: e * 2, F, True, "K_out = K"),
+REFUSALS = {  # name -> (callable, message dtype, lane, reason fragment
+    #          [, trace keywords: default kd = 8, so K = Kd = 8])
+    "int64": (lambda m, e, d: m.to(torch.int64) + 1, F, False,
+              "torch.int64"),
+    "slice_width": (lambda m, e, d: m[..., :2] + e, F, True,
+                    "slices the lane axis to width 2"),
+    "bool_result": (lambda m, e, d: m > e, F, True, "returns torch.bool"),
     "mixed_dtypes": (lambda m, e, d: m + e.to(torch.float64), F, False,
-                     "mixes dtypes"),
-    "int_float_const": (lambda m, e, d: m * 0.5, I, False,
-                        "mixes dtypes"),
-    "int_float_compare": (lambda m, e, d: torch.where(m < 2.5, m, e), I,
-                          False, "float constant 2.5 in an int32 program"),
+                     "torch.float64"),
+    "kd_other": (lambda m, e, d: m * d.sum(-1, keepdim=True), F, True,
+                 "width 2 with K = 3", {"k": 3, "kd": 2}),
+    "int_lane_sum": (lambda m, e, d: m * m.sum(-1, keepdim=True), I, True,
+                     "torch.int64"),
     "control_flow": (lambda m, e, d: m if bool((m > 0).all()) else e, F,
                      False, "data-dependent control flow"),
     "captured": (lambda m, e, d: m * CAPTURED, F, True,
@@ -178,18 +183,50 @@ CAPTURED = torch.tensor([0.5])
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_refusals_name_their_reason(name):
-  fn, dtype, lane, reason = REFUSALS[name]
-  got = pe.trace(fn, dtype, lane=lane, kd=8)
+  fn, dtype, lane, reason, *kw = REFUSALS[name]
+  got = pe.trace(fn, dtype, lane=lane, **(kw[0] if kw else {"kd": 8}))
   assert isinstance(got, pe.Refused) and reason in got.reason, got
 
 
+# What the refusals above held before the kernel took lane mixing, K_out = 1
+# and mixed dtypes: each now traced, and its expression equal to the
+# callable.  name -> (callable, message dtype, lane, result dtype, K_out).
+FORMERLY_REFUSED = {
+    "lane_mixing": (lambda m, e, d: m * m.sum(-1, keepdim=True), F, True,
+                    F, 8),
+    "k_out": (lambda m, e, d: m[..., :1] + e, F, True, F, 1),
+    "k_out_shape": (lambda m, e, d: e * 2, F, True, F, 1),
+    "int_float_const": (lambda m, e, d: m * 0.5, I, False, F, None),
+    "int_float_compare": (lambda m, e, d: torch.where(m < 2.5, m, e), I,
+                          False, I, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_processes_are_taken(name):
+  fn, dtype, lane, out_dtype, k_out = FORMERLY_REFUSED[name]
+  expr = pe.trace(fn, dtype, lane=lane, kd=8)
+  assert isinstance(expr, pe.ProcessExpr), expr
+  assert expr.out_dtype == out_dtype and expr.k_out == k_out
+  assert expr.lane_mixing == (k_out is not None)
+  m, e, d = _inputs(dtype, lane)
+  with np.errstate(all="ignore"):
+    want = fn(m, e, d)
+  _same(expr.evaluate(m, e, d), want)
+
+
 def test_mixed_input_dtypes_refused():
-  got = pe.trace(lambda m, e, d: m + e, F, lane=False, edge_dtype=I)
+  # Operands of different dtypes are taken, promoted as torch promotes
+  # them; an operand the kernel has no type for is refused when read.
+  mixed = pe.trace(lambda m, e, d: m + e, F, lane=False, edge_dtype=I)
+  assert isinstance(mixed, pe.ProcessExpr) and mixed.edge_dtype == I
+  got = pe.trace(lambda m, e, d: m + e, F, lane=False,
+                 edge_dtype=torch.int64)
   assert isinstance(got, pe.Refused)
-  assert "reads the edge value as torch.int32" in got.reason
+  assert "reads the edge value as torch.int64" in got.reason
   # An edge value the process never reads may have any dtype.
   assert isinstance(pe.trace(lambda m, e, d: m * 2, F, lane=False,
-                             edge_dtype=I), pe.ProcessExpr)
+                             edge_dtype=torch.int64), pe.ProcessExpr)
   assert isinstance(pe.trace(lambda m, e, d: m, torch.float64, lane=False),
                     pe.Refused)
 
@@ -202,16 +239,15 @@ def graphs(rmat_small):
 
 
 REFUSED_PROGRAMS = {  # name -> (program, message [n] or [n, 4], reason)
-    "lane_mixing": (GraphProgram(
-        process_message=lambda m, e, d: m * m.sum(-1, keepdim=True),
-        reduce_kind="add", process_reads_dst=False), 4,
-                    "reduces across the lane axis"),
-    "k_out": (GraphProgram(process_message=lambda m, e, d: m[..., :1] * 2,
-                           reduce_kind="min", process_reads_dst=False), 4,
-              "indexes or reshapes"),
+    "int64": (GraphProgram(
+        process_message=lambda m, e, d: m.long() + 1, reduce_kind="add",
+        process_reads_dst=False), 4, "torch.int64"),
+    "bool_result": (GraphProgram(process_message=lambda m, e, d: m > e,
+                                 reduce_kind="max", process_reads_dst=False),
+                    0, "returns torch.bool"),
     "mixed_dtypes": (GraphProgram(
         process_message=lambda m, e, d: m.double() + e, reduce_kind="min",
-        process_reads_dst=False), 0, "mixes dtypes"),
+        process_reads_dst=False), 0, "torch.float64"),
     "control_flow": (GraphProgram(
         process_message=lambda m, e, d: m if bool((m > 0).any()) else e,
         reduce_kind="max", process_reads_dst=False), 0,
@@ -239,6 +275,33 @@ def test_refused_programs_plan_onto_ell_and_raise_on_cuda_ell(graphs, name):
   with pytest.raises(ValueError, match=reason):
     tspmv.spmv(tg, msg, act, msg, prog, backend=tbe.Plan("cuda_ell"))
   assert not tplanner._kernel_shape_ok(prog, max(q, 1))
+
+
+# The programs the refusals above held before the kernel took lane mixing
+# and K_out = 1: structural auto now plans them onto cuda_ell, and the
+# kernel's path (its plain version here) equals Plan("ell").
+FORMERLY_REFUSED_PROGRAMS = {
+    "lane_mixing": GraphProgram(
+        process_message=lambda m, e, d: m * m.sum(-1, keepdim=True),
+        reduce_kind="add", process_reads_dst=False),
+    "k_out": GraphProgram(process_message=lambda m, e, d: m[..., :1] * 2,
+                          reduce_kind="min", process_reads_dst=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FORMERLY_REFUSED_PROGRAMS))
+def test_formerly_refused_programs_plan_onto_cuda_ell(graphs, name):
+  n, _, tg = graphs
+  prog = FORMERLY_REFUSED_PROGRAMS[name]
+  msg = torch.rand((n, 4))
+  act = torch.rand(n) < 0.7
+  assert tbe.resolve(tbe.AUTO_PLAN, tg, msg, msg, prog).name == "cuda_ell"
+  got, got_r = tspmv.spmv(tg, msg, act, msg, prog,
+                          backend=tbe.Plan("cuda_ell"))
+  want, want_r = tspmv.spmv(tg, msg, act, msg, prog, backend=tbe.Plan("ell"))
+  assert torch.equal(got_r, want_r)
+  torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+  assert tplanner._kernel_shape_ok(prog, 4)
 
 
 REFERENCE_FORMS = {  # the reference's lambdas of the five shipped forms
@@ -400,6 +463,7 @@ static inline float __fmul_rn(float a, float b) { return a * b; }
 static inline float __fdiv_rn(float a, float b) { return a / b; }
 static inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 static inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
+static inline int __float2int_rz(float a) { return static_cast<int>(a); }
 #include "ell_process.cuh"
 """
 
@@ -487,3 +551,74 @@ def test_generated_functors_match_the_expression_on_the_host(tmp_path,
       _same(got, cuda)
     else:
       _same(got, want)
+
+
+# Processes over float32 and int32 operands mixed (name -> callable,
+# message / edge / destination dtypes): their functors take and return each
+# operand in its own type.
+MIXED_HOST = {
+    "int_times_float": (lambda m, e, d: m * e, (I, F, I)),
+    "float_plus_int": (lambda m, e, d: m + e - d, (F, I, I)),
+    "int_lt_float": (lambda m, e, d: torch.where(m < e, m, d), (I, F, I)),
+    "int_float_compare": (lambda m, e, d: torch.where(m < 2.5, m, e),
+                          (I, I, I)),
+    "int_div": (lambda m, e, d: m / 3 + e / d, (I, I, F)),
+    "int_min_float": (lambda m, e, d: torch.minimum(m, e) * 0.5, (I, F, F)),
+    "float_to_int": (lambda m, e, d: (m * e).to(torch.int32) + d,
+                     (F, F, I)),
+    "bool_cast": (lambda m, e, d: (m > e).to(torch.int32) * d + m,
+                  (I, F, I)),
+}
+
+
+def test_generated_mixed_functors_match_the_expression_on_the_host(
+    tmp_path):
+  cxx = shutil.which("g++") or shutil.which("c++")
+  if cxx is None:
+    pytest.skip("no host C++ compiler")
+  ctype = {F: "float", I: "int"}
+  rng = np.random.default_rng(4)
+  n = 512
+  structs, cases, exprs = [], [], []
+  for k, (name, (fn, dts)) in enumerate(MIXED_HOST.items()):
+    expr = pe.trace(fn, dts[0], lane=False, edge_dtype=dts[1],
+                    dst_dtype=dts[2])
+    assert isinstance(expr, pe.ProcessExpr), name
+    exprs.append(expr)
+    structs.append(expr.functor_source(f"P{k}"))
+    types = [ctype[t] for t in (*dts, expr.out_dtype)]
+    cases.append(
+        f"      case {k}: reinterpret_cast<{types[3]}*>(y.data())[i] = "
+        f"P{k}::apply(reinterpret_cast<const {types[0]}*>(m.data())[i], "
+        f"reinterpret_cast<const {types[1]}*>(e.data())[i], "
+        f"reinterpret_cast<const {types[2]}*>(d.data())[i]); break;")
+  src = (_SHIM + "namespace {\n" + "\n".join(structs) + "}\n"
+         + "using T = uint32_t;\n" + _MAIN % "\n".join(cases))
+  path = tmp_path / "shim_mixed.cc"
+  path.write_text(src)
+  exe = tmp_path / "shim_mixed"
+  subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off",
+                  f"-I{CSRC}", "-o", str(exe), str(path)], check=True,
+                 capture_output=True, text=True)
+  for k, ((name, (fn, dts)), expr) in enumerate(zip(MIXED_HOST.items(),
+                                                    exprs)):
+    ops = []
+    for t in dts:  # in-range values: a float-to-int cast stays defined
+      ops.append(torch.from_numpy(rng.integers(1, 2000, n).astype(np.int32))
+                 if t == I else torch.from_numpy(
+                     (rng.standard_normal(n) * 40).astype(np.float32)))
+    data = (np.array([k, n], np.uint32).tobytes()
+            + b"".join(x.numpy().tobytes() for x in ops))
+    out = subprocess.run([str(exe)], input=data, capture_output=True,
+                         check=True).stdout
+    got = torch.from_numpy(np.frombuffer(
+        out, dtype={F: np.float32, I: np.int32}[expr.out_dtype]).copy())
+    want = expr.evaluate(*ops)
+    if name == "int_div":
+      # A product with the float32 reciprocal of 3, as eager CUDA divides
+      # by a constant (the CPU's torch divides).
+      inv = np.float32(1.0) / np.float32(3.0)
+      m, e, d = (x.numpy() for x in ops)
+      want = torch.from_numpy(m.astype(np.float32) * inv
+                              + e.astype(np.float32) / d)
+    _same(got, want)

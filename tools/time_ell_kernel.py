@@ -29,13 +29,20 @@ of the graph through ``Plan("cuda_ell")`` (every call on the RMAT graph,
 every 16th on the road grid) and at three frontiers (every source active,
 10%, all but one); BFS int32 min at Q = 8 at the three frontiers; the
 destination-reading gradient form f32 add at Q = 1 (Kd = 1) and Q = 8
-(Kd = 8) with every source active; and, where the package traces a
-program's own process, SSSP written as ``lambda m, e, d: e + m`` (a
-generated instance) on the SSSP row's calls and frontiers.  Each at every ``--block-rows`` given
-(default: the wrapper's own).  Each row carries its byte bound (the bytes
-the work needs over 3.35 TB/s, as ``chip_smoke.py`` counts them).  The
+(Kd = 8) with every source active; where the package traces a program's
+own process, SSSP written as ``lambda m, e, d: e + m`` (a generated
+instance) on the SSSP row's calls and frontiers; and where it takes
+processes that mix lanes and mixed dtypes, PageRank's ``0.85 * m`` in
+bfloat16 (every source active), SSSP's ``m + e`` with float32 messages on
+the graph's edge values in float16 (the SSSP row's calls and frontiers),
+and, with every source active, a K = 16 message and property through the
+lane dot score ``(m * d).sum(-1)`` (max) and collaborative filtering's
+``(e - (m * d).sum(-1, keepdim=True)) * m`` (add).  Each at every
+``--block-rows`` given (default: the wrapper's own).  Each row carries its byte bound (the bytes
+the work needs over 3.35 TB/s, as ``chip_smoke.py`` counts them), and each
+card time the device events seen and the launches of its window.  The
 output is one JSON line with the card's name and power limit as
-``nvidia-smi`` reports them.
+``nvidia-smi`` reports them; ``--compare`` adds each row's B/A.
 """
 
 from __future__ import annotations
@@ -55,6 +62,16 @@ ROAD_RECORD_EVERY = 16
 DST_OP = "edge_minus_msg_dst_times_msg"
 EDGE_OPS = ("msg_plus_edge", "msg_times_edge", DST_OP)
 E_PLUS_M = "traced:e+m"
+# Traced rows: op -> (process, edge dtype name (None: the message's), K of
+# a lane-mixing process (None: lanewise), whether it reads the property).
+TRACED = {
+    E_PLUS_M: (lambda m, e, d: e + m, None, None, False),
+    "traced:0.85*m": (lambda m, e, d: 0.85 * m, None, None, False),
+    "traced:m+e": (lambda m, e, d: m + e, "float16", None, False),
+    "traced:dot": (lambda m, e, d: (m * d).sum(-1), None, 16, True),
+    "traced:cf": (lambda m, e, d: (e - (m * d).sum(-1, keepdim=True)) * m,
+                  None, 16, True),
+}
 # name -> process_op, reduce, dtype name, Q, Kd (None: no dprop),
 # frontiers ("recorded": the calls of the graph's own run of that algorithm)
 ROWS = {
@@ -72,6 +89,17 @@ ROWS = {
     # package traces processes.
     "sssp_e_plus_m,f32,min,Q=1": (E_PLUS_M, "min", "float32", 1, None,
                                   ("recorded", "all", "10%", "all_but_one")),
+    # Processes over bfloat16 and mixed dtypes, and processes that mix the
+    # lanes of a K = 16 message, where the package takes them.
+    "pr_bf16,bf16,add,Q=1": ("traced:0.85*m", "add", "bfloat16", 1, None,
+                             ("all",)),
+    "sssp_half_edges,f32+f16,min,Q=1": (
+        "traced:m+e", "min", "float32", 1, None,
+        ("recorded", "all", "10%", "all_but_one")),
+    "dot_score,f32,max,K=16": ("traced:dot", "max", "float32", 16, 16,
+                               ("all",)),
+    "cf_one_leaf,f32,add,K=16": ("traced:cf", "add", "float32", 16, 16,
+                                 ("all",)),
 }
 
 
@@ -155,36 +183,54 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 5) -> float:
   return statistics.median(means)
 
 
-PAD_S = 0.05
+LOST_SHARE = 0.01  # the share of a window's launches the profiler may lose
+# (or find in excess)
+# The pad of each window taken before a lossy row raises: a window that
+# lost events is taken again with a wider pad.
+WINDOW_PADS_S = (0.05, 0.5, 2.0)
 
 
-def device_ms(fn, calls: int, repeats: int = 3) -> float:
-  """The card's kernel time a call of ``fn``, which makes ``calls`` calls:
-  ``torch.profiler``'s device events in the window, summed, over the
-  calls (the events of :func:`cuda_ms` also time the host issuing them).
-  The window is padded by :data:`PAD_S` of host sleep on both sides: the
-  profiler keeps only the device events that fall inside it on the host's
-  clock, and in a long process a window of a few short launches came back
-  empty (``chip_smoke.py``'s road PageRank row in PR 22).  Raises if the
-  profiler saw fewer kernels than the calls launched."""
+def device_ms(fn, calls: int) -> dict:
+  """The card's kernel time a call of ``fn``, which makes ``calls`` calls
+  (the events of :func:`cuda_ms` also time the host issuing them):
+  ``torch.profiler``'s device events in a window of at least 128 launches,
+  summed, over the launches.  The window is padded by a few tens of ms of
+  host sleep on both sides: the profiler keeps only the device events
+  that fall inside it on the host's clock, and a window of a few short
+  launches came back empty or short (``chip_smoke.py``'s road PageRank
+  row; 2 of 3 events in a window of three launches).  A window that lost
+  more than :data:`LOST_SHARE` of its launches' events, or saw that share
+  more than launched, is taken again with the next pad of
+  :data:`WINDOW_PADS_S`, and after the last this raises.  Returns ``ms``, ``events`` seen and ``launches`` of the window kept (one
+  kernel a launch)."""
   import time
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
+  repeats = max(1, -(-128 // calls))
+  launches = repeats * calls
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    time.sleep(PAD_S)
-    for _ in range(repeats):
-      fn()
-    torch.cuda.synchronize()
-    time.sleep(PAD_S)
-  kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-  if len(kernels) < repeats * calls:
-    raise RuntimeError(f"the profiler saw {len(kernels)} kernels of "
-                       f"{repeats * calls} launches")
-  busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-  return busy / (repeats * calls)
+  seen = []
+  for pad_s in WINDOW_PADS_S:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      time.sleep(pad_s)
+      for _ in range(repeats):
+        fn()
+      torch.cuda.synchronize()
+      time.sleep(pad_s)
+    # A kernel is one (stream, name, start, end): the profiler can report
+    # an event twice.
+    kernels = list({(e.device_resource_id, e.name, e.time_range.start,
+                     e.time_range.end): e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA}.values())
+    seen.append(len(kernels))
+    if abs(len(kernels) - launches) <= launches * LOST_SHARE:
+      busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+      return {"ms": busy / len(kernels), "events": len(kernels),
+              "launches": launches}
+  raise RuntimeError(f"the profiler saw {seen} device events in {len(seen)} "
+                     f"windows of {launches} launches each")
 
 
 def csr_of(g):
@@ -201,21 +247,38 @@ def csr_of(g):
   return torch.sparse_csr_tensor(crow, src, ones, size=(g.n_pad, g.n))
 
 
-def bound_ms(g, valid_slots: int, op: str, q: int, kd, size: int,
-             calls) -> float:
+def bound_ms(g, valid_slots: int, edge: bool, q: int, kd, size: int,
+             calls, k_out=None, out_size=None) -> float:
   """The bytes the work needs over the HBM rate, a launch on average: cols
-  of the valid slots, vals for the edge forms of the valid slots whose
-  source is active, one row extent per packed row, the active sources'
-  messages, active and dprop once, y and recv once (``chip_smoke.py``'s
-  count)."""
-  active_msgs = sum(int(a.sum()) for _, a in calls) / len(calls)
-  edge_slots = (sum(int((g.mask & a[g.cols]).sum()) for _, a in calls)
-                / len(calls) if op in EDGE_OPS else 0)
-  need = (valid_slots * 4 + edge_slots * 4 + 4 * g.n_pad
-          + active_msgs * q * size + g.n + (0 if kd is None
-                                            else g.n_pad * kd * size)
-          + g.n_pad * q * size + g.n_pad)
+  of the valid slots, vals for a process that reads the edge of the valid
+  slots whose source is active, one row extent per packed row, active once
+  for each source some valid slot names, the messages of those that are
+  active, dprop once for each row with such a slot, y (K_out wide) and
+  recv once (``chip_smoke.py``'s count)."""
+  import torch
+  named = torch.zeros((g.n,), dtype=torch.bool, device=g.cols.device)
+  named[g.cols[g.mask].long()] = True
+  live_slots = active_msgs = live_rows = 0
+  for _, a in calls:
+    live = g.mask & a[g.cols]
+    live_slots += int(live.sum()) / len(calls)
+    active_msgs += int((named & a).sum()) / len(calls)
+    live_rows += int(live.any(1).sum()) / len(calls)
+  edge_slots = live_slots if edge else 0
+  need = (valid_slots * 4 + edge_slots * g.vals.element_size() + 4 * g.n_pad
+          + active_msgs * q * size + int(named.sum())
+          + (0 if kd is None else live_rows * kd * size)
+          + g.n_pad * (k_out or q) * (out_size or size) + g.n_pad)
   return need / H100_BYTES_PER_S * 1e3
+
+
+def half_edges(g):
+  """``g`` with its edge values (and its spill's) in float16."""
+  import dataclasses
+  import torch
+  spill = None if g.spill is None else dataclasses.replace(
+      g.spill, w=g.spill.w.to(torch.float16))
+  return dataclasses.replace(g, vals=g.vals.to(torch.float16), spill=spill)
 
 
 def measure(args) -> dict:
@@ -239,36 +302,52 @@ def measure(args) -> dict:
   dev_ms = {str(b or "default"): {} for b in block_rows}
   bounds, library = {}, {}
   csr = None
+  half_g = None
   for name, (op, red, dt, q, kd, fronts) in ROWS.items():
     dtype = getattr(torch, dt)
-    if op == E_PLUS_M:
-      if not hasattr(ell, "library_for"):
-        continue  # a package that takes only the shipped forms
+    graph, k_out, out_size = g, None, None
+    if op in TRACED:
+      fn, edge_dt, k, reads_dst = TRACED[op]
+      if not hasattr(ell, "library_for") or (
+          op != E_PLUS_M and not hasattr(ell, "MAX_LANES")):
+        continue  # a package that does not take this process
       from repro_torch.kernels import process_expr
-      form = {"process": process_expr.trace(lambda m, e, d: e + m, dtype,
-                                            lane=False, reads_dst=False)}
-      recorded[name] = recorded["sssp,f32,min,Q=1"]
+      if edge_dt is not None:
+        if half_g is None:
+          half_g = half_edges(g)
+        graph = half_g
+      expr = process_expr.trace(
+          fn, dtype, lane=k is not None, edge_dtype=graph.vals.dtype,
+          kd=kd or 1, reads_dst=reads_dst, **({} if k is None else {"k": k}))
+      form = {"process": expr}
+      edge = expr.reads_edge
+      if k is not None:
+        k_out = expr.k_out
+      out_size = torch.empty((), dtype=getattr(expr, "out_dtype", dtype)
+                             ).element_size()
+      if "recorded" in fronts:
+        recorded[name] = recorded["sssp,f32,min,Q=1"]
     else:
       form = {"process_op": op}
+      edge = op in EDGE_OPS
     msg = (torch.randint(0, 64, (n, q), generator=gen, device="cuda",
                          dtype=dtype) if dtype == torch.int32
-           else torch.rand((n, q), generator=gen, device="cuda"))
+           else torch.rand((n, q), generator=gen, device="cuda").to(dtype))
     dprop = (None if kd is None
              else torch.rand((g.n_pad, kd), generator=gen, device="cuda"))
     runs = {f: ([(msg, frontiers[f])] if f != "recorded"
                 else recorded[name]) for f in fronts}
-    bounds[name] = {f: bound_ms(g, valid_slots,
-                                "msg_plus_edge" if op == E_PLUS_M else op, q,
-                                kd, msg.element_size(), calls)
+    bounds[name] = {f: bound_ms(graph, valid_slots, edge, q, kd,
+                                msg.element_size(), calls, k_out, out_size)
                     for f, calls in runs.items()}
     for b in block_rows:
       key = str(b or "default")
       row = ms[key][name] = {}
       drow = dev_ms[key][name] = {}
       for f, calls in runs.items():
-        def run(calls=calls, b=b):
+        def run(calls=calls, b=b, graph=graph, form=form, dprop=dprop):
           for m, a in calls:
-            ell.ell_spmv(g.cols, g.vals, g.mask, m, a, **form,
+            ell.ell_spmv(graph.cols, graph.vals, graph.mask, m, a, **form,
                          reduce_kind=red, dprop=dprop, block_rows=b, **ext)
         row[f] = cuda_ms(run, iters=max(1, 20 // len(calls))) / len(calls)
         drow[f] = device_ms(run, len(calls))
@@ -306,8 +385,28 @@ def compare(args) -> int:
     runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
   print(json.dumps({"card": card_line(), "graph": args.graph,
                     "order": "ABBA", "pythonpath": args.compare,
-                    "runs": runs}), flush=True)
+                    "b_over_a": b_over_a(runs), "runs": runs}), flush=True)
   return 0
+
+
+def b_over_a(runs: list) -> dict:
+  """B's time over A's for each row and frontier that both ran, the mean
+  of B's two runs over the mean of A's: by CUDA events (``ms``) and by
+  the card's own time (``device_ms``), at each ``--block-rows``."""
+  out = {}
+  for kind in ("ms", "device_ms"):
+    for b, rows in runs[0][kind].items():
+      for name, fronts in rows.items():
+        for f in fronts:
+          got = {"A": [], "B": []}
+          for run in runs:
+            t = run[kind].get(b, {}).get(name, {}).get(f)
+            if t is not None:
+              got[run["label"]].append(t["ms"] if isinstance(t, dict) else t)
+          if len(got["A"]) == 2 and len(got["B"]) == 2:
+            out.setdefault(kind, {}).setdefault(b, {}).setdefault(
+                name, {})[f] = sum(got["B"]) / sum(got["A"])
+  return out
 
 
 def main(argv=None) -> int:
