@@ -12,9 +12,9 @@ Phases, in order; any failure exits non-zero before the result line:
    and the ELL kernel's generated instances for the processes of
    ``traced_programs()`` (per-edge functions written only as lambdas, each
    traced by ``kernels/process_expr.py``; among them processes that
-   mix the lanes of a [n, K] message, at K = 3, 16, 33 and 128, and
-   processes over bfloat16 or mixed dtypes), each instance's seconds and a
-   second load's cache hit;
+   mix the lanes of a [n, K] message, at K = 3, 16, 33, 128 and 256 over
+   float32, float16 and bfloat16 messages, and processes over bfloat16 or
+   mixed dtypes), each instance's seconds and a second load's cache hit;
 2. hold the ELL kernel against its plain PyTorch version on the card over a
    sweep of shapes, semirings (the destination-reading form too, with a
    [n_pad, 1] and a [n_pad, Q] property), dtypes, query widths, masks
@@ -22,7 +22,11 @@ Phases, in order; any failure exits non-zero before the result line:
    frontiers (partial and every source active); then every generated
    instance against its plain version (the program's callable) over the
    same kinds of case, float16 included, the lane-mixing ones at their K
-   with 80%, all and no sources active;
+   with 80%, all and no sources active and on rows of 0, 1, 4, 5, 31, 32,
+   33 and 152 slots; and the shipped float16 instances' sums (a row of
+   4,000 terms of 1.0 gives 4,000 exactly; 2,048 and 3,999 ones give
+   6,048, where a float16 sum would stall at 2,048; 500 terms within one
+   float16 ulp of the float64 sum, at Q = 1 and 8);
 3. build an RMAT graph (Graph500 parameters, scale 20, edge factor 16,
    self-loops removed, symmetrized) as an ELL graph on the card, serve 32
    BFS queries through ``GraphQueryServer`` with ``Plan("cuda_ell")`` (by
@@ -423,9 +427,10 @@ LOST_SHARE = 0.01  # the share of a window's launches the profiler may lose
 WINDOW_PADS_S = (0.05, 0.5, 2.0)
 
 
-def launch_busy(fn, launches: int) -> dict:
-  """:func:`device_busy` of ``fn``, which makes ``launches`` kernel
-  launches, with ``ms``, the card's time a launch.  A window whose
+def launch_busy(fn, launches: int, kernels: int = 1) -> dict:
+  """:func:`device_busy` of ``fn``, which makes ``launches`` launches of
+  ``kernels`` kernels each, with ``ms``, the card's time a launch (all its
+  kernels).  A window whose
   profiler lost more than :data:`LOST_SHARE` of the launches' events, or
   saw that share more than launched, is taken again with the next pad of
   :data:`WINDOW_PADS_S`; after the last ``ms`` is None (not measured).
@@ -438,13 +443,14 @@ def launch_busy(fn, launches: int) -> dict:
     seen.append(busy["kernels"])
     twice.append(busy["duplicates"])
     placed.append(busy["placed"])
-    if abs(busy["kernels"] - launches) <= launches * LOST_SHARE:
+    if abs(busy["kernels"] - launches * kernels) <= (
+        launches * kernels * LOST_SHARE):
       break
   else:
     return busy | {"ms": None, "windows": seen, "duplicates": twice,
                    "placed": placed}
-  return busy | {"ms": busy["busy_ms"] / busy["kernels"], "windows": seen,
-                 "duplicates": twice, "placed": placed}
+  return busy | {"ms": busy["busy_ms"] / busy["kernels"] * kernels,
+                 "windows": seen, "duplicates": twice, "placed": placed}
 
 
 def busy_line(what: str, busy: dict) -> str:
@@ -487,10 +493,16 @@ class Traced(typing.NamedTuple):
   dst: object = None
   lanes: tuple = ()
 
+  def dst_dtype(self, dtype):
+    """The destination property's dtype at message dtype ``dtype`` (``dst``
+    "msg": the message's)."""
+    return dtype if self.dst == "msg" else self.dst
 
-# The lane widths of phase 2's lane-mixing instances: a thread group of 4
-# and of 16, 32 threads of 2 lanes (one of them past K), 32 of 4.
-MIXED_LANES = (3, 16, 33, 128)
+
+# The lane widths of phase 2's lane-mixing instances (float32: one thread a
+# message, teams of 4, 16 (9 used, 4-byte loads) and 32, and 32 threads of 8
+# lanes, two 16-byte loads each).
+MIXED_LANES = (3, 16, 33, 128, 256)
 
 
 @functools.lru_cache(maxsize=None)
@@ -525,8 +537,9 @@ def traced_programs() -> dict:
                     (f32, f16)),
       "cf_one_leaf": Traced(
           lambda m, e, d: (e - (m * d).sum(-1, keepdim=True)) * m, "add",
-          (f32,), dst=f32, lanes=MIXED_LANES),
-      "dot_score": Traced(dot, "max", (f32,), dst=f32, lanes=MIXED_LANES),
+          (f32, f16, bf16), dst="msg", lanes=MIXED_LANES),
+      "dot_score": Traced(dot, "max", (f32, f16, bf16), dst="msg",
+                          lanes=MIXED_LANES),
       "dot_score_min": Traced(dot, "min", (f32,), dst=f32, lanes=(33,)),
       "lane_softmax_weight": Traced(
           lambda m, e, d: torch.exp(m - m.amax(-1, keepdim=True)) * e, "add",
@@ -547,7 +560,8 @@ def traced_expr(name: str, dtype, lane: bool, k=None):
   prog = traced_programs()[name]
   expr = process_expr.trace(
       prog.fn, dtype, lane=lane or bool(prog.lanes), k=k,
-      edge_dtype=prog.edge or dtype, dst_dtype=prog.dst or dtype,
+      edge_dtype=prog.edge or dtype,
+      dst_dtype=prog.dst_dtype(dtype) or dtype,
       kd=(k or 1) if prog.dst is not None else 1,
       reads_dst=prog.dst is not None)
   if (not isinstance(expr, process_expr.ProcessExpr) or expr.shipped
@@ -614,7 +628,10 @@ def random_mask(gen, n_pad, width, kind="random", p_mask=0.7):
   (every row one lane, empty rows among them); ``short_holes`` random
   slots among the first 4 (holed masks, one lane); ``lane_boundary``
   40 rows of 5 slots, then rows of 3 (the one-lane class begins inside
-  the second 32-row chunk)."""
+  the second 32-row chunk).  ``lane_rows``: runs of 32 rows of
+  :data:`LANE_ROW_RUNS` extents in turn (the lane-vector grid's row
+  classes: a warp a row, two teams, one team), every other row holed with
+  its last slot kept."""
   import torch
   dev = "cuda"
   slot = torch.arange(width, device=dev)[None]
@@ -636,12 +653,24 @@ def random_mask(gen, n_pad, width, kind="random", p_mask=0.7):
     lens = torch.full((n_pad,), 3, device=dev)
     lens[:40] = 5
     return slot < lens[:, None].clamp(max=width)
+  if kind == "lane_rows":
+    runs = [run[i % len(run)] for run in LANE_ROW_RUNS for i in range(32)]
+    lens = torch.tensor(runs, device=dev).repeat(-(-n_pad // len(runs)))
+    lens = lens[:n_pad, None].clamp(max=width)
+    holes = torch.rand((n_pad, width), generator=gen, device=dev) < 0.3
+    holes[::2] = False
+    holes[slot == lens - 1] = False
+    return (slot < lens) & ~holes
   mask = torch.rand((n_pad, width), generator=gen, device=dev) < p_mask
   if kind == "edge_rows":
     mask[::3] = False
     mask[1::3] = False
     mask[1::3, -1] = True
   return mask
+
+
+# The row extents of the ``lane_rows`` mask, in runs of 32 rows.
+LANE_ROW_RUNS = ((152, 33, 32, 31), (5, 4), (1, 0))
 
 
 def random_ell(gen, n_pad, width, n_src, q, dtype, p_mask=0.7, p_act=0.8,
@@ -784,8 +813,61 @@ def phase_kernel_sweep(ell_mod, ref_mod) -> dict:
     raise AssertionError("all-inactive case: expected identity rows")
   log(f"phase 2: kernel == plain on {len(cases) + 1} cases "
       f"(max abs err {max_err:.3g})")
+  half = half_sums(ell_mod, ref_mod)
   traced = traced_sweep(ell_mod, ref_mod, gen)
-  return {"cases": len(cases) + 1, "max_abs_err": max_err, "traced": traced}
+  return {"cases": len(cases) + 1, "max_abs_err": max_err,
+          "half_sums": half, "traced": traced}
+
+
+def half_sums(ell_mod, ref_mod) -> dict:
+  """The shipped ``msg`` instance's float16 sums on one row whose slots
+  name sources 0..W-1, every source active: it sums in float and rounds
+  once, as the reference's kernel sums a tile (``jnp.sum`` of float16) and
+  as the plain version sums a row.  4,000 terms of 1.0 give 4,000; 2,048
+  and then 3,999 ones give 6,048 (a float16 sum stalls at 2,048 on the
+  thread that holds the first term); 500 terms in [0.5, 1.5] (float16
+  values) come within one float16 ulp of the float64 sum, at Q = 1 and on
+  the query-tiled grid at Q = 8; the plain version the same."""
+  import numpy as np
+  import torch
+  rng = np.random.default_rng(25)
+  rows = {"ones_4000": np.ones((4000, 1)),
+          "stall_6048": np.concatenate([[[2048.0]], np.ones((3999, 1))]),
+          "uniform_500": rng.uniform(0.5, 1.5, (500, 1)),
+          "uniform_500_q8": rng.uniform(0.5, 1.5, (500, 8))}
+  exact = {"ones_4000": 4000.0, "stall_6048": 6048.0}
+  out = {}
+  for name, terms in rows.items():
+    msg = torch.from_numpy(terms).half().cuda()
+    w = msg.shape[0]
+    cols = torch.arange(w, dtype=torch.int32, device="cuda")[None]
+    mask = torch.ones((1, w), dtype=torch.bool, device="cuda")
+    vals = torch.ones((1, w), dtype=torch.float16, device="cuda")
+    act = torch.ones((w,), dtype=torch.bool, device="cuda")
+    y, r = ell_mod.ell_spmv(cols, vals, mask, msg, act, process_op="msg",
+                            reduce_kind="add")
+    yr, rr = ref_mod.ell_spmv_ref(cols, vals, mask, msg, act,
+                                  torch.zeros((1, 1), dtype=torch.float16,
+                                              device="cuda"),
+                                  process=ell_mod.plain_process("msg"),
+                                  reduce_kind="add")
+    torch.cuda.synchronize()
+    want = msg.double().sum(dim=0).cpu().numpy()
+    ulp = np.spacing(want.astype(np.float16)).astype(np.float64)
+    got = {"kernel": y.double().cpu().numpy()[0],
+           "plain": yr.double().cpu().numpy()[0]}
+    for what, v in got.items():
+      ok = (v.tolist() == [exact[name]] if name in exact
+            else bool((np.abs(v - want) <= ulp).all()))
+      if not ok or r.tolist() != [1] or rr.tolist() != [1]:
+        raise AssertionError(f"phase 2: float16 sum {name} ({what}): "
+                             f"{v.tolist()}, float64 sum {want.tolist()}")
+    out[name] = {"kernel": got["kernel"].tolist(),
+                 "float64": want.tolist()}
+  log(f"phase 2: shipped float16 sums in float: " + "; ".join(
+      f"{k} {v['kernel'][:2]} (float64 {v['float64'][:2]})"
+      for k, v in out.items()))
+  return out
 
 
 def traced_operands(gen, name: str, dtype, shape, kw: dict, k=None):
@@ -805,7 +887,7 @@ def traced_operands(gen, name: str, dtype, shape, kw: dict, k=None):
   dprop = None
   if prog.dst is not None:
     dprop = torch.randn((n_pad, k or 1), generator=gen,
-                        device="cuda").to(prog.dst)
+                        device="cuda").to(prog.dst_dtype(dtype))
   return cols, vals, mask, msg, act, dprop
 
 
@@ -841,6 +923,9 @@ def traced_sweep(ell_mod, ref_mod, gen) -> dict:
   lane_cases += [((300, 8, 310, None), {"mask": "short_holes",
                                         "p_act": 0.5}),
                  ((300, 6, 310, None), {"mask": "short", "p_act": 0.8})]
+  lane_cases += [((300, 152, 310, None), {"mask": "lane_rows",
+                                          "p_act": p_act})
+                 for p_act in (0.8, 2.0)]
   count, max_err, per = 0, 0.0, {}
   for name, dtype, k in traced_instances():
     prog = traced_programs()[name]
@@ -1543,7 +1628,7 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
   unpadded = device_busy(
       lambda: [run_all(kernel)() for _ in range(old_reps)], pad_s=0.0)
   busy = launch_busy(lambda: [run_all(kernel)() for _ in range(reps)],
-                     window)
+                     window, ell_mod.kernels_per_call(op))
   device_ms = busy["ms"]
   size = calls[0][0].element_size()
   edge = op.reads_edge if traced else op in ell_mod.EDGE_OPS

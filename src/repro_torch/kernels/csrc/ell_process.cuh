@@ -14,14 +14,19 @@
 // types: float32 and the integer types compute in their type, float16 and
 // bfloat16 ones in float and round after each op, as eager CUDA does), or,
 // for a process that mixes the lane axis of a K-lane message, kLanes,
-// kGroup, kPer, kOut, kDstLanes and
+// kTeam, kVec, kLoad, kSlots, kOut, kDstLanes and
 //
-//   __device__ static void apply(const M (&m)[kPer], E e, const D (&d)[..],
-//                                R (&out)[..], int sub, unsigned group);
+//   __device__ static void apply(const M (&m)[kVec], E e, const D (&d)[..],
+//                                R (&out)[..], int sub);
 //
-// over one edge's K lanes, held kPer a thread by the row's kGroup threads
-// (lane sub + kGroup * j on thread sub of the group); a lane reduction is a
-// butterfly of shuffles within the group (group_sum and the like below).
+// over one edge's K lanes, held kVec a thread by a team of kTeam threads
+// (lanes sub * kVec + j, j < kVec, on thread sub of the team: contiguous,
+// so a thread loads them kLoad at a time); a lane reduction is a sum over
+// the thread's lanes and then a butterfly of shuffles within the team
+// (team_sum and the like below).  Every thread of the warp calls apply
+// together (the kernel calls it for empty slots too and drops the result),
+// so the shuffles name the whole warp.  kSlots is the slots a team takes
+// per step of its row (ell_spmv_body.cuh's lanes_kernel).
 //
 // Without __CUDACC__ (a host C++ compiler, given the CUDA intrinsics this
 // file names) only the float and integer parts are defined: the tests
@@ -150,35 +155,62 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The lanes of one row's group of G threads (a power of two, aligned within
-// the warp; `group` is its mask): lane `src` of the group's value, and the
-// sum, max and min over the group, the same on every thread of it (each
-// butterfly step combines two values in the same order on both threads).
-template <int G, typename V>
-__device__ __forceinline__ V group_lane(V v, int src, unsigned group) {
-  return G == 1 ? v : __shfl_sync(group, v, src, G);
+// A value from another thread of the warp, for every type the kernel
+// shuffles (the narrow integers through int); the whole warp takes part.
+template <typename V>
+__device__ __forceinline__ V shfl(V v, int src, int width) {
+  return __shfl_sync(0xffffffffu, v, src, width);
 }
-template <int G, typename V>
-__device__ __forceinline__ V group_sum(V v, unsigned group) {
+template <typename V>
+__device__ __forceinline__ V shfl_xor(V v, int mask, int width) {
+  return __shfl_xor_sync(0xffffffffu, v, mask, width);
+}
+#define GRAPHMAT_NARROW_SHFL(T)                                             \
+  template <>                                                               \
+  __device__ __forceinline__ T shfl<T>(T v, int src, int width) {           \
+    return static_cast<T>(                                                  \
+        __shfl_sync(0xffffffffu, static_cast<int>(v), src, width));         \
+  }                                                                         \
+  template <>                                                               \
+  __device__ __forceinline__ T shfl_xor<T>(T v, int mask, int width) {      \
+    return static_cast<T>(                                                  \
+        __shfl_xor_sync(0xffffffffu, static_cast<int>(v), mask, width));    \
+  }
+GRAPHMAT_NARROW_SHFL(int8_t)
+GRAPHMAT_NARROW_SHFL(int16_t)
+GRAPHMAT_NARROW_SHFL(uint8_t)
+GRAPHMAT_NARROW_SHFL(bool)
+#undef GRAPHMAT_NARROW_SHFL
+
+// The lanes of one edge's team of T threads (a power of two, aligned within
+// the warp): thread `src`'s value, and the sum, max and min over the team,
+// the same on every thread of it (each butterfly step combines two values
+// in the same order on both threads).
+template <int T, typename V>
+__device__ __forceinline__ V team_lane(V v, int src) {
+  return T == 1 ? v : shfl(v, src, T);
+}
+template <int T, typename V>
+__device__ __forceinline__ V team_sum(V v) {
 #pragma unroll
-  for (int off = G >> 1; off > 0; off >>= 1) {
-    v = Num<V>::add(v, __shfl_xor_sync(group, v, off, G));
+  for (int off = T >> 1; off > 0; off >>= 1) {
+    v = Num<V>::add(v, shfl_xor(v, off, T));
   }
   return v;
 }
-template <int G, typename V>
-__device__ __forceinline__ V group_max(V v, unsigned group) {
+template <int T, typename V>
+__device__ __forceinline__ V team_max(V v) {
 #pragma unroll
-  for (int off = G >> 1; off > 0; off >>= 1) {
-    v = Num<V>::max(v, __shfl_xor_sync(group, v, off, G));
+  for (int off = T >> 1; off > 0; off >>= 1) {
+    v = Num<V>::max(v, shfl_xor(v, off, T));
   }
   return v;
 }
-template <int G, typename V>
-__device__ __forceinline__ V group_min(V v, unsigned group) {
+template <int T, typename V>
+__device__ __forceinline__ V team_min(V v) {
 #pragma unroll
-  for (int off = G >> 1; off > 0; off >>= 1) {
-    v = Num<V>::min(v, __shfl_xor_sync(group, v, off, G));
+  for (int off = T >> 1; off > 0; off >>= 1) {
+    v = Num<V>::min(v, shfl_xor(v, off, T));
   }
   return v;
 }

@@ -4,7 +4,9 @@
 // forms of ell_process.cuh, for float, half and int32 (one type for every
 // operand) and the add, min and max reduces, each with its three launch
 // variants (the cooperative single-query grid, the plain launch for tables
-// of short rows, the query-tiled grid).
+// of short rows, the query-tiled grid).  A half instance sums in float and
+// rounds once into y, as the TPU kernel's jnp.sum sums a tile of half
+// values in float32 (its min and max are the same in either type).
 //
 // Replaces the TPU kernel src/repro/kernels/ell_spmv.py::ell_spmv_pallas.  A
 // program's traced process_message that equals one of these forms node for
@@ -25,6 +27,16 @@ enum Op {
   kEdgeMinusMsgDstTimesMsg = 4
 };
 
+// The reduce's accumulator for one operand type: float for half.
+template <typename T>
+struct SumType {
+  using type = T;
+};
+template <>
+struct SumType<__half> {
+  using type = float;
+};
+
 template <typename T, int R>
 int run_op(int op, const void* cols, const void* vals, const void* mask,
            const void* msg, const void* active, const void* dprop,
@@ -33,10 +45,10 @@ int run_op(int op, const void* cols, const void* vals, const void* mask,
            int q_tile, int kd, int flags, int warps_per_block, int n_filled,
            int device, void* stream) {
 #define GRAPHMAT_RUN(P)                                                     \
-  return run_ell<Operands<T, T, T, T>, R, P>(                               \
+  return run_ell<Operands<T, T, T, T, typename SumType<T>::type>, R, P>(   \
       cols, vals, mask, msg, active, dprop, row_end, segs, y, recv, sync,   \
       n_src, nseg, num_warps, width, q, q_tile, kd, flags, warps_per_block, \
-      n_filled, 0, device, stream)
+      n_filled, 0, 0, device, stream)
   switch (op) {
     case kMsg: GRAPHMAT_RUN(ProcessMsg);
     case kMsgPlusOne: GRAPHMAT_RUN(ProcessMsgPlusOne);
@@ -63,11 +75,13 @@ extern "C" int graphmat_ell_spmv(const void* cols, const void* vals,
                                  int n_src, int nseg,
                                  int num_warps, int width, int q, int q_tile,
                                  int kd, int flags, int warps_per_block,
-                                 int n_filled, int n_rows, int dtype,
+                                 int n_filled, int n_rows, int tag,
+                                 int dtype,
                                  int edge_dtype, int dst_dtype, int out_dtype,
                                  int k_out, int reduce, int op, int device,
                                  void* stream) {
   (void)n_rows;
+  (void)tag;
   if ((edge_dtype != -1 && edge_dtype != dtype) ||
       (dst_dtype != -1 && dst_dtype != dtype) || out_dtype != dtype ||
       k_out != q) {

@@ -25,21 +25,55 @@
 // message, edge value, destination property and result each have their own
 // (an Operands; the shipped forms: float, half or int32 for all four; a
 // generated instance: float, half, bfloat16, int32, int16, int8 or uint8,
-// as its trace says).  The sum is kept in the result type, as the TPU kernel
-// keeps y in its out_dtype, except that a generated instance with a half or
-// bfloat16 result keeps it in float and rounds once, as the TPU kernel's
-// jnp.sum sums a tile of them in float32; float arithmetic is rounded op by
-// op (no contraction into FMAs), as the plain version rounds it.
+// as its trace says).  The sum is kept in the result type, except that a
+// half or bfloat16 result (a shipped half form's, a generated instance's)
+// is summed in float and rounded once into y, as the TPU kernel's jnp.sum
+// sums a tile of them in float32 and as the plain version sums a row; float
+// arithmetic is rounded op by op (no contraction into FMAs), as the plain
+// version rounds it.
 //
 // A process that mixes the lane axis of a [n_src, K] message (a lane sum or
 // max, a select, a result of K_out = 1; the reference's single-query grid
 // with its resident message, ell_spmv.py:192) runs on the lane-vector grid
-// (lanes_kernel below): a group of G threads (K up to 32 rounded up to a
-// power of two, else 32) owns one packed row and walks its slots; for each
-// slot each thread gathers its lanes of msg[col] (lane sub + G * j, so the
-// group's loads are coalesced), the functor applies to the whole vector
-// with its lane reductions as butterflies of shuffles within the group, and
-// the K_out results accumulate spread over the group.
+// (lanes_kernel below).  What bounds it: the same bytes as below, and the
+// gathers of the K-value messages, each a random read of K * sizeof(M)
+// bytes from L1 or L2 (the dot score on RMAT-20, K = 16: 942 MB of gathers
+// against 143 MB of bytes; CF's process at the Netflix Prize's size: 2,970
+// MB against 437 MB).  The first version (a group of up to 32
+// threads a row, 4-byte lane loads, 4 slots a step along a chain of
+// dependent loads, every thread of the group loading the same cols, a
+// group for every row whatever its extent) ran at 0.09-0.10 of the byte
+// bound.  This one:
+// * 16-byte lane vectors: a team of T threads holds a message, V
+//   contiguous lanes a thread (16 bytes where K allows), loaded W lanes at
+//   a time (the widest load that divides V and K: K = 3 and K = 33 take
+//   scalar loads);
+// * a row's slots spread over the teams of its threads: a row of G
+//   threads has G / T teams, team t takes slot u * (G / T) + t of each
+//   step for u < U; a lane sum is an in-thread sum over V lanes and log2 T
+//   shuffles within the team; the teams' accumulators combine once, at
+//   the row's end;
+// * coalesced slot metadata: the row's threads load consecutive cols (and
+//   vals, and mask), one slot a thread, evict-first, and each the active
+//   flag of its own col; shuffles hand the slots to the teams;
+// * U = 1-4 slots a team a step (64 bytes of message loads in flight a
+//   thread), loaded before the functor applies to any;
+// * row classes: G is the fewest teams whose step covers the row, up to a
+//   warp, so short rows share a warp (32 / G rows) and long rows take one
+//   each, from a per-graph table (RowSegments.lane_table) over the
+//   degree-sorted extents;
+// * a pass over the active flags before the launch finds whether every
+//   source is active, as the single-query grid's cooperative prologue
+//   does (then no slot reads a flag, which takes a dependent load off each
+//   step); registers bounded for 6 blocks of 256 threads an SM (the warps
+//   in flight set the pace);
+// * messages through the read-only path with no L2 policy: an evict-last
+//   hint on them changed no row by more than 1% (PERF.md).
+// Measured (H100 80GB HBM3, 700 W; the card's time a call,
+// tools/time_ell_kernel.py; the first version -> this one): the dot score
+// on RMAT-20 0.4674 -> 0.2433 ms, CF's process at the Netflix Prize's size
+// 1.2768 -> 0.6255 ms, against gather floors of 0.1279 and 0.2560 ms (the
+// same gathers in the same order with nothing else, tools/gather_floor.py).
 //
 // What bounds it: bytes, counted as this graph needs them.  Per valid slot
 // 4 bytes of cols (and 4 of vals for a process that reads the edge), 4 bytes
@@ -109,6 +143,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "ell_process.cuh"
 
@@ -121,7 +156,8 @@ enum DType {
 
 // The types of one instance: message, edge value, destination property,
 // result and the accumulator of the reduce (the result's type, or float for
-// a generated instance's half or bfloat16 result).
+// a half or bfloat16 result: ell_spmv.cu's half forms, a generated
+// instance's half or bfloat16 result).
 template <typename M_, typename E_, typename D_, typename R_,
           typename A_ = R_>
 struct Operands {
@@ -156,8 +192,9 @@ __device__ __forceinline__ __nv_bfloat16 convert<__nv_bfloat16, float>(
 }
 // Launch flags: the mask is a prefix of every row (do not read it); cols,
 // vals and mask rows allow 4-slot vector loads; message rows allow 4-value
-// vector loads; active allows 16-flag vector loads; every row is in the
-// one-lane class (a plain launch sized to the rows, no all-active pass).
+// vector loads (the lane-vector grid: P::kLoad-value loads); active allows
+// 16-flag vector loads; every row is in the one-lane class (a plain launch
+// sized to the rows, no all-active pass).
 enum Flags {
   kMaskIsPrefix = 1,
   kVecSlots = 2,
@@ -313,23 +350,29 @@ struct Args {
   const int4* segs;  // (first row, end row, lanes per row, first warp)
   void* y;
   int8_t* recv;
-  // The cooperative launch's barrier and all-active flag, 4 words that
-  // carry over from launch to launch on one stream (see grid_barrier).
+  // The cooperative launch's barrier and all-active flag and the lane
+  // grid's tag word, 5 words that carry over from launch to launch on one
+  // stream (see grid_barrier and kLaneTag).
   unsigned* sync;
   int n_src, nseg, num_warps, width, q, q_tile, kd, flags, warps_per_block;
   // Rows [0, n_filled) each have a set slot: the one-lane class reads their
   // cols beside their extent.
   int n_filled;
-  // The packed rows (the lane-vector grid's count; the other grids walk
-  // the segment table).
+  // The packed rows.
   int n_rows;
+  // This launch's tag (the lane-vector grid: its all-active pass writes it
+  // to sync[kLaneTag] when it sees an inactive source).
+  unsigned tag;
 };
 
 // A grid-wide barrier (the launch is cooperative: every block resident).
 // sync[0] counts arrivals and returns to 0 at each crossing; sync[1], the
 // generation, only grows; sync[2 + parity] counts the blocks that saw an
 // inactive source, and the crossing clears the next generation's entry.
-enum Sync { kArrivals = 0, kGeneration = 1, kInactive = 2 };
+// sync[kLaneTag]: the tag of the last lane-vector launch whose all-active
+// pass saw an inactive source (tags only grow on a stream, so an older one
+// never matches).
+enum Sync { kArrivals = 0, kGeneration = 1, kInactive = 2, kLaneTag = 4 };
 
 __device__ __forceinline__ unsigned volatile_load(const unsigned* p) {
   return *static_cast<const volatile unsigned*>(p);
@@ -607,33 +650,48 @@ __device__ __forceinline__ void lane_row(const Args& args, int warp,
 // each warp of rows, for tables whose rows are all in the one-lane class.
 // Then the grid's warps walk the warps of rows in turn, one query tile
 // after another.
+// Whether this block sees an inactive source (`first` and `threads`: this
+// thread's place in the grid and the grid's size), on every thread of it.
+__device__ __forceinline__ bool block_sees_inactive(const Args& args,
+                                                    long long first,
+                                                    long long threads) {
+  bool inactive = false;
+  long long done = 0;
+  if (args.flags & kVecActive) {  // 16 flags a load
+    const uint4* a16 = reinterpret_cast<const uint4*>(args.active);
+    done = args.n_src / 16 * 16;
+    for (long long v = first; v < args.n_src / 16; v += threads) {
+      const uint4 w = __ldcs(a16 + v);
+      inactive |= (w.x & w.y & w.z & w.w) != 0x01010101u;
+    }
+  }
+  for (long long v = done + first; v < args.n_src; v += threads) {
+    inactive |= !ro(args.active + v);
+  }
+  return __syncthreads_or(inactive);
+}
+
+// A cooperative launch's prologue: whether every source is active, found
+// by the whole grid (the blocks that see an inactive one count themselves
+// in this generation's entry of the sync words) and agreed on across a
+// grid barrier.
+__device__ __forceinline__ bool all_sources_active(const Args& args,
+                                                   long long first,
+                                                   long long threads) {
+  const unsigned gen = volatile_load(args.sync + kGeneration);
+  if (block_sees_inactive(args, first, threads) && threadIdx.x == 0) {
+    atomicAdd(args.sync + kInactive + (gen & 1), 1u);
+  }
+  grid_barrier(args.sync);
+  return volatile_load(args.sync + kInactive + (gen & 1)) == 0u;
+}
+
 template <typename O, int R, typename P, int QT, bool COOP>
 __global__ void ell_spmv_kernel(const Args args) {
   const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
                           threadIdx.x;
-  bool all_active = false;
-  if (COOP) {
-    const unsigned gen = volatile_load(args.sync + kGeneration);
-    bool inactive = false;
-    long long done = 0;
-    if (args.flags & kVecActive) {  // 16 flags a load
-      const uint4* a16 = reinterpret_cast<const uint4*>(args.active);
-      done = args.n_src / 16 * 16;
-      for (long long v = first; v < args.n_src / 16; v += threads) {
-        const uint4 w = __ldcs(a16 + v);
-        inactive |= (w.x & w.y & w.z & w.w) != 0x01010101u;
-      }
-    }
-    for (long long v = done + first; v < args.n_src; v += threads) {
-      inactive |= !ro(args.active + v);
-    }
-    if (__syncthreads_or(inactive) && threadIdx.x == 0) {
-      atomicAdd(args.sync + kInactive + (gen & 1), 1u);
-    }
-    grid_barrier(args.sync);
-    all_active = volatile_load(args.sync + kInactive + (gen & 1)) == 0u;
-  }
+  const bool all_active = COOP && all_sources_active(args, first, threads);
   const int tiles = (args.q + args.q_tile - 1) / args.q_tile;
   const int warps = static_cast<int>(threads >> 5);
   for (int tile = 0; tile < tiles; ++tile) {
@@ -697,136 +755,247 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-// The lane-vector grid, for a process P that mixes the lanes of a K-lane
-// message: a group of P::kGroup threads a packed row (rows in turn over
-// the grid), each holding P::kPer of a message's lanes (lane sub + G * j).
-// For each 4 of the row's slots the group loads cols (and vals, and the
-// mask where it is read) together, then the 4 sources' active flags, then
-// its lanes of the active sources' messages, then applies P and
-// accumulates its share of the K_out results.  All threads of a group walk
-// the same slots, so the functor's shuffles (mask `group`) see the whole
-// group.
+// B bytes (one value or a vector of them) of a message row, through the
+// read-only path.
+template <int B>
+struct Bytes;
+template <>
+struct Bytes<16> { using type = uint4; };
+template <>
+struct Bytes<8> { using type = uint2; };
+template <>
+struct Bytes<4> { using type = unsigned; };
+template <>
+struct Bytes<2> { using type = unsigned short; };
+template <>
+struct Bytes<1> { using type = unsigned char; };
+
+template <int B>
+__device__ __forceinline__ typename Bytes<B>::type ld_msg(const void* p) {
+  return __ldg(reinterpret_cast<const typename Bytes<B>::type*>(p));
+}
+
+// Thread `sub`'s V lanes (sub * V + j) of message row c, W at a time where
+// `vec` (the message pointer is aligned to W values; every row then is,
+// since W divides K), else one at a time; zero for c < 0 and for lanes at
+// or past K.
+template <typename TM, int K, int V, int W>
+__device__ __forceinline__ void load_lanes(const TM* msg, int c, int sub,
+                                           bool vec, TM (&m)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; j += W) {
+    const int k = sub * V + j;
+    if (c >= 0 && k < K) {
+      const TM* p = msg + static_cast<long long>(c) * K + k;
+      if (W > 1 && vec) {
+        const auto w = ld_msg<W * sizeof(TM)>(p);
+        memcpy(m + j, &w, sizeof(w));
+      } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          const auto w = ld_msg<sizeof(TM)>(p + i);
+          memcpy(m + j + i, &w, sizeof(TM));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < W; ++i) m[j + i] = Num<TM>::zero();
+    }
+  }
+}
+
+// The lane-vector grid's blocks: at most kLanesThreads threads, with
+// registers for kLanesBlocks of them on an SM (40 a thread: its loads wait
+// on gathers, so the warps in flight set its pace).
+constexpr int kLanesThreads = 256, kLanesBlocks = 6;
+
+// One warp of rows of the lane-vector grid, for a process P that mixes the
+// lanes of a K-lane message (segment `seg` of the row-class table).  A team
+// of T = P::kTeam threads holds one message, V = P::kVec contiguous lanes a
+// thread; a warp has 32 / T teams.  A packed row gets G threads (a power
+// of two from T to 32: G / T teams, the fewest whose steps of U =
+// P::kSlots slots a team cover the row, capped at the warp), and a warp
+// serves 32 / G rows.  A step of a row takes its next (G / T) * U slots:
+// the row's G threads load their cols (and vals, and the mask where it is
+// read) one slot a thread, consecutive, evict-first, then (unless every
+// source is active) the active flag of the col each holds; shuffles hand
+// slot u * (G / T) + t of the step to team t, whose threads then load
+// their lanes of the U messages (at most 16 bytes a load, all U in flight)
+// and apply P to each, every thread of the warp together.  The teams of a
+// row keep their own accumulators (K_out of them spread over the team) and
+// combine them once, at the row's end, by a butterfly over the row's
+// threads: float sums in float in that fixed order, min and max exactly.
 template <typename O, int R, typename P>
-__global__ void lanes_kernel(const Args args) {
+__device__ __forceinline__ void lane_rows(const Args& args, int warp,
+                                          int4 seg, bool all_active) {
   using TM = typename O::M;
   using TE = typename O::E;
   using TD = typename O::D;
   using TA = typename O::A;
   using TR = typename O::R;
-  constexpr int G = P::kGroup;
-  constexpr int L = P::kPer;
   constexpr int K = P::kLanes;
-  constexpr int OL = P::kOut == 1 ? 1 : L;
-  constexpr int DL = P::kDstLanes == 1 ? 1 : L;
+  constexpr int T = P::kTeam;
+  constexpr int V = P::kVec;
+  constexpr int W = P::kLoad;
+  constexpr int U = P::kSlots;
+  constexpr int OV = P::kOut == 1 ? 1 : V;
+  constexpr int DV = P::kDstLanes == 1 ? 1 : V;
+  // Cols loads a thread per step: a row's G >= T threads load U * G / T
+  // slots.
+  constexpr int ROUNDS = (U + T - 1) / T;
   const int lane = threadIdx.x & 31;
-  const int sub = lane & (G - 1);
-  const unsigned group =
-      G == 32 ? kFull : ((1u << G) - 1u) << (lane & ~(G - 1));
-  const long long groups = static_cast<long long>(gridDim.x) * blockDim.x / G;
+  const int g = seg.z;
+  const int teams = g / T;
+  const int in_row = lane & (g - 1);
+  const int team = in_row / T;
+  const int sub = in_row & (T - 1);
+  const long long row = seg.x +
+                        static_cast<long long>(warp - seg.w) * (32 / g) +
+                        lane / g;
+  const bool live = row < seg.y;
+  const int end = live ? st(args.row_end + row) : 0;
+  // The warp steps together (the functor's shuffles name it all) to its
+  // longest row's end.
+  const int warp_end = __reduce_max_sync(kFull, end);
   const bool prefix = args.flags & kMaskIsPrefix;
-  const bool vec_slots = args.flags & kVecSlots;
+  const bool vec = args.flags & kVecMsg;
   const TE* vals = static_cast<const TE*>(args.vals);
   const TM* msg = static_cast<const TM*>(args.msg);
-  for (long long row =
-           (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
-       row < args.n_rows; row += groups) {
-    TD d[DL];
+  TD d[DV];
 #pragma unroll
-    for (int j = 0; j < DL; ++j) {
-      const int k = P::kDstLanes == 1 ? 0 : sub + G * j;
-      d[j] = (P::kReadsDst && k < K)
-                 ? ro(static_cast<const TD*>(args.dprop) + row * args.kd + k)
-                 : Num<TD>::zero();
-    }
-    TA acc[OL];
-#pragma unroll
-    for (int j = 0; j < OL; ++j) acc[j] = identity<TA, R>();
-    bool got = false;
-    const int end = st(args.row_end + row);
-    const long long base = row * args.width;
-    for (int s0 = 0; s0 < end; s0 += 4) {
-      int c[4];
-      TE e[4];
-      bool ok[4];
-      if (vec_slots) {  // s0 + 3 < width
-        uint8_t mk[4] = {1, 1, 1, 1};
-        ld4<true>(args.cols + base + s0, c);
-        if (P::kReadsEdge) ld4<true>(vals + base + s0, e);
-        if (!prefix) ld4<true>(args.mask + base + s0, mk);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ok[i] = s0 + i < end && mk[i];
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool in = s0 + i < end;
-          c[i] = in ? st(args.cols + base + s0 + i) : 0;
-          if (P::kReadsEdge) {
-            e[i] = in ? st(vals + base + s0 + i) : Num<TE>::zero();
-          }
-          ok[i] = in && (prefix || st(args.mask + base + s0 + i));
-        }
-      }
-      if (!P::kReadsEdge) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) e[i] = Num<TE>::zero();
-      }
-      uint8_t a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ok[i] ? ro(args.active + c[i]) : 0;
-      TM m[4][L];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < L; ++j) {
-          const int k = sub + G * j;
-          m[i][j] = (a[i] && k < K)
-                        ? ro(msg + static_cast<long long>(c[i]) * K + k)
-                        : Num<TM>::zero();
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (a[i]) {  // the same on every thread of the group
-          got = true;
-          TR r[OL];
-          P::apply(m[i], e[i], d, r, sub, group);
-#pragma unroll
-          for (int j = 0; j < OL; ++j) {
-            acc[j] = combine<TA, R>(acc[j], convert<TA>(r[j]));
-          }
-        }
-      }
-    }
-    TR* y = static_cast<TR*>(args.y);
-    if (P::kOut == 1) {
-      if (sub == 0) y[row] = convert<TR>(acc[0]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < L; ++j) {
-        const int k = sub + G * j;
-        if (k < K) y[row * K + k] = convert<TR>(acc[j]);
-      }
-    }
-    if (sub == 0) args.recv[row] = got ? 1 : 0;
+  for (int j = 0; j < DV; ++j) {
+    const int k = P::kDstLanes == 1 ? 0 : sub * V + j;
+    d[j] = (P::kReadsDst && live && k < K)
+               ? st(static_cast<const TD*>(args.dprop) + row * args.kd + k)
+               : Num<TD>::zero();
   }
+  TA acc[OV];
+#pragma unroll
+  for (int j = 0; j < OV; ++j) acc[j] = identity<TA, R>();
+  bool got = false;
+  const long long base = row * args.width;
+  const int step = U * teams;
+  for (int s0 = 0; s0 < warp_end; s0 += step) {
+    // This thread's slots of the step: col, or -1 for a slot that is past
+    // the row, masked off or from an inactive source.
+    int c[ROUNDS];
+    TE e[ROUNDS];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int i = r * g + in_row;
+      const int s = s0 + i;
+      c[r] = -1;
+      e[r] = Num<TE>::zero();
+      if ((ROUNDS * T == U || i < step) && s < end) {
+        c[r] = st(args.cols + base + s);
+        if (P::kReadsEdge) e[r] = st(vals + base + s);
+        if (!prefix && !st(args.mask + base + s)) c[r] = -1;
+      }
+    }
+    if (!all_active) {
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r) {
+        if (c[r] >= 0 && !ro(args.active + c[r])) c[r] = -1;
+      }
+    }
+    // Slot u * teams + team of the step: held by thread (u % T) * teams +
+    // team of the row in round u / T.
+    int cu[U];
+    TE eu[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int src = (u % T) * teams + team;
+      cu[u] = shfl(c[u / T], src, g);
+      eu[u] = P::kReadsEdge ? shfl(e[u / T], src, g) : Num<TE>::zero();
+    }
+    TM m[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      load_lanes<TM, K, V, W>(msg, cu[u], sub, vec, m[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      TR r[OV];
+      P::apply(m[u], eu[u], d, r, sub);
+      if (cu[u] >= 0) {  // the same on every thread of the team
+        got = true;
+#pragma unroll
+        for (int j = 0; j < OV; ++j) {
+          acc[j] = combine<TA, R>(acc[j], convert<TA>(r[j]));
+        }
+      }
+    }
+  }
+  // The row's teams combine (G is warp-uniform).
+  for (int off = T; off < g; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < OV; ++j) {
+      acc[j] = combine<TA, R>(acc[j], shfl_xor(acc[j], off, 32));
+    }
+  }
+  const unsigned ballot = __ballot_sync(kFull, got);
+  const unsigned rows = g == 32 ? kFull : ((1u << g) - 1u) << (lane & ~(g - 1));
+  got = (ballot & rows) != 0u;
+  if (!live) return;
+  TR* y = static_cast<TR*>(args.y);
+  if (P::kOut == 1) {
+    if (in_row == 0) y[row] = convert<TR>(acc[0]);
+  } else if (team == 0) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int k = sub * V + j;
+      if (k < K) y[row * K + k] = convert<TR>(acc[j]);
+    }
+  }
+  if (in_row == 0) args.recv[row] = got ? 1 : 0;
+}
+
+// The lane-vector grid's all-active pass, a plain launch just before
+// lanes_kernel on the same stream: a block that sees an inactive source
+// writes the launch's tag to sync[kLaneTag].
+__global__ void active_pass(const Args args) {
+  if (block_sees_inactive(
+          args, static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
+          static_cast<long long>(gridDim.x) * blockDim.x) &&
+      threadIdx.x == 0) {
+    *static_cast<volatile unsigned*>(args.sync + kLaneTag) = args.tag;
+  }
+}
+
+// The lane-vector grid: a warp for each warp of rows of the row-class
+// table (segs: first row, end row, G, first warp; made once per graph and
+// (T, U) by the wrapper).  Every source is active when active_pass did not
+// write this launch's tag (then no slot reads a flag, which takes a
+// dependent load off each step).
+template <typename O, int R, typename P>
+__global__ void __launch_bounds__(kLanesThreads, kLanesBlocks)
+    lanes_kernel(const Args args) {
+  const int warp = static_cast<int>(
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
+  if (warp >= args.num_warps) return;  // the whole warp
+  lane_rows<O, R, P>(args, warp,
+                     __ldg(args.segs + find_segment(args, warp, 0)),
+                     volatile_load(args.sync + kLaneTag) != args.tag);
 }
 
 // Validates the arguments, makes the stream's device current, launches on
 // `stream` and returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take).  Any error
 // left pending by earlier work is cleared first, so the code returned
-// belongs to this launch.  LANES: the lane-vector grid (a plain launch of
-// a group of threads for each packed row), for a lane-mixing P.
+// belongs to this launch.  LANES: the lane-vector grid (its all-active
+// pass, then a plain launch over its row-class table, segs), for a
+// lane-mixing P.
 template <typename O, int R, typename P, bool LANES = false>
 int run_ell(const void* cols, const void* vals, const void* mask,
             const void* msg, const void* active, const void* dprop,
             const void* row_end, const void* segs, void* y, void* recv,
             void* sync, int n_src, int nseg, int num_warps, int width, int q,
             int q_tile, int kd, int flags, int warps_per_block, int n_filled,
-            int n_rows, int device, void* stream) {
+            int n_rows, int tag, int device, void* stream) {
   bool bad;
   if constexpr (LANES) {
-    bad = n_src < 1 || n_rows < 1 || width < 1 || q != P::kLanes ||
+    bad = sync == nullptr || n_src < 1 || n_rows < 1 || nseg < 1 ||
+          num_warps < 1 || width < 1 || q != P::kLanes ||
           warps_per_block < 1 || warps_per_block > 32 ||
           (P::kReadsDst && (dprop == nullptr || kd != P::kDstLanes));
   } else {
@@ -851,15 +1020,21 @@ int run_ell(const void* cols, const void* vals, const void* mask,
                static_cast<const int*>(row_end),
                static_cast<const int4*>(segs), y, static_cast<int8_t*>(recv),
                static_cast<unsigned*>(sync), n_src, nseg, num_warps, width,
-               q, q_tile, kd, flags, warps_per_block, n_filled, n_rows};
+               q, q_tile, kd, flags, warps_per_block, n_filled, n_rows,
+               static_cast<unsigned>(tag)};
   cudaError_t err = cudaSuccess;
   if constexpr (LANES) {
-    const int threads = 32 * warps_per_block;
-    const long long blocks =
-        (static_cast<long long>(n_rows) * P::kGroup + threads - 1) / threads;
-    lanes_kernel<O, R, P>
-        <<<static_cast<unsigned>(blocks < 0x7fffffffLL ? blocks : 0x7fffffff),
-           threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    // The all-active pass (16 flags a thread, up to 1,024 blocks), then a
+    // warp for each warp of rows of the table, at most kLanesThreads / 32
+    // warps a block.
+    const long long pass =
+        (static_cast<long long>(n_src) + 16 * 256 - 1) / (16 * 256);
+    active_pass<<<static_cast<int>(pass < 1024 ? pass : 1024), 256, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a);
+    const int wpb = warps_per_block < kLanesThreads / 32
+                        ? warps_per_block : kLanesThreads / 32;
+    lanes_kernel<O, R, P><<<(num_warps + wpb - 1) / wpb, 32 * wpb, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   } else {
     err = launch<O, R, P>(a, static_cast<cudaStream_t>(stream));
   }

@@ -22,7 +22,9 @@ shipped instance; any other gets an instance of its own, for its operand
 dtypes and reduce (:func:`library_for`).  The result has the trace's dtype
 and width: ``[n_pad, K_out]``, K_out = Q for a lanewise process, 1 or K for
 one that mixes the lanes of a ``[n_src, K]`` message, which runs on the
-kernel's lane-vector grid (K up to ``process_expr.MAX_LANES``).
+kernel's lane-vector grid (K up to ``process_expr.MAX_LANES``): teams of
+threads a message, rows spread over warps by a row-class table that
+:meth:`RowSegments.lane_table` makes once per graph and team shape.
 
 The shipped library is built with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at its first launch, into ``build/`` at
@@ -131,7 +133,7 @@ launches = LaunchCounter()
 
 def _bind(lib: ctypes.CDLL) -> None:
   fn = lib.graphmat_ell_spmv
-  fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 19
+  fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 20
                  + [ctypes.c_void_p])
   fn.restype = ctypes.c_int
 
@@ -158,7 +160,8 @@ extern "C" int graphmat_ell_spmv(const void* cols, const void* vals,
                                  int n_src, int nseg,
                                  int num_warps, int width, int q, int q_tile,
                                  int kd, int flags, int warps_per_block,
-                                 int n_filled, int n_rows, int dtype,
+                                 int n_filled, int n_rows, int tag,
+                                 int dtype,
                                  int edge_dtype, int dst_dtype, int out_dtype,
                                  int k_out, int reduce, int op, int device,
                                  void* stream) {{
@@ -171,7 +174,7 @@ extern "C" int graphmat_ell_spmv(const void* cols, const void* vals,
   return run_ell<Operands<{types}>, {reduce_code}, TracedProcess{lanes}>(
       cols, vals, mask, msg, active, dprop, row_end, segs, y, recv, sync,
       n_src, nseg, num_warps, width, q, q_tile, kd, flags, warps_per_block,
-      n_filled, n_rows, device, stream);
+      n_filled, n_rows, tag, device, stream);
 }}
 
 extern "C" const char* graphmat_cuda_error_string(int code) {{
@@ -228,7 +231,7 @@ def library_for(process: Union[str, ProcessExpr],
   return lib
 
 
-# The kernel's grid barrier and all-active flag keep 4 words from launch
+# The kernel's grid barrier and all-active flags keep 5 words from launch
 # to launch.  Launches on one stream run in order, so each stream has its
 # own.  A launch that faults leaves the CUDA context unusable (the error is
 # sticky), so no later launch meets words that a launch left half crossed.
@@ -239,9 +242,21 @@ def _sync_words(index: int, stream: int) -> torch.Tensor:
   key = (index, stream)
   words = _syncs.get(key)
   if words is None:
-    words = _syncs[key] = torch.zeros(4, dtype=torch.int32,
+    words = _syncs[key] = torch.zeros(5, dtype=torch.int32,
                                       device=torch.device("cuda", index))
   return words
+
+
+# The lane-vector grid's launch tags, one run a stream (the fifth sync
+# word holds the tag of the last launch whose all-active pass saw an
+# inactive source; a stale word only costs that launch the flag reads).
+_tags: Dict[Tuple[int, int], int] = {}
+
+
+def _lane_tag(index: int, stream: int) -> int:
+  key = (index, stream)
+  tag = _tags[key] = (_tags.get(key, 0) + 1) & 0x7fffffff
+  return tag
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,7 +269,9 @@ class RowSegments:
   and ``tiled_num_warps`` are the same for the query-tiled grid (at least
   :data:`TILED_MIN_LANES` lanes a row).  Rows ``[0, filled_rows)`` each
   have a set slot; ``short_rows`` says that every row of ``table`` is in
-  the one-lane class.
+  the one-lane class.  ``chunk_extent`` is the longest extent of each run
+  of :data:`SEGMENT_CHUNK` rows, from which :meth:`lane_table` makes the
+  lane-vector grid's row-class tables.
   """
 
   table: torch.Tensor  # int32[num_segments, 4]
@@ -263,6 +280,23 @@ class RowSegments:
   tiled_num_warps: int
   filled_rows: int
   short_rows: bool
+  chunk_extent: np.ndarray  # int32[ceil(n_pad / SEGMENT_CHUNK)]
+  n_pad: int
+  _lane_tables: Dict[Tuple[int, int], Tuple[torch.Tensor, int]] = (
+      dataclasses.field(default_factory=dict, compare=False, repr=False))
+
+  def lane_table(self, team: int, slots: int) -> Tuple[torch.Tensor, int]:
+    """The lane-vector grid's row-class table for teams of ``team``
+    threads taking ``slots`` slots a step (:func:`row_classes`), made at
+    its first use and kept: ``(table, num_warps)``, the table's rows
+    ``(first row, end row, threads per row, first warp)``."""
+    key = (team, slots)
+    got = self._lane_tables.get(key)
+    if got is None:
+      got = self._lane_tables[key] = _table(
+          row_classes(self.chunk_extent, team, slots), self.n_pad,
+          self.table.device)
+    return got
 
 
 def row_lanes(length) -> np.ndarray:
@@ -272,6 +306,22 @@ def row_lanes(length) -> np.ndarray:
   for cand in (16, 8, 4, 2, 1):
     lanes[need <= cand] = cand
   return lanes
+
+
+def row_classes(length, team: int, slots: int) -> np.ndarray:
+  """The lane-vector grid's threads for rows of extent ``length``, for
+  teams of ``team`` threads (a message each) that take ``slots`` slots of
+  the row a step: the fewest teams (a power of two) whose step covers the
+  row, at most a warp's ``32 / team``, times ``team``.  Rows that fit one
+  team's step share a warp, ``32 / team`` of them; long rows take a warp
+  each."""
+  need = -(-np.asarray(length, np.int64) // slots)
+  teams = np.full(need.shape, 32 // team, np.int32)
+  cand = 32 // team
+  while cand > 1:
+    cand //= 2
+    teams[need <= cand] = cand
+  return teams * team
 
 
 def _table(chunk_lanes: np.ndarray, n_pad: int, device):
@@ -302,14 +352,23 @@ def row_segments(row_end: torch.Tensor) -> RowSegments:
   chunks = -(-n_pad // SEGMENT_CHUNK)
   padded = np.zeros(chunks * SEGMENT_CHUNK, np.int32)
   padded[:n_pad] = ends
-  lanes = row_lanes(padded.reshape(chunks, SEGMENT_CHUNK).max(axis=1))
+  extent = padded.reshape(chunks, SEGMENT_CHUNK).max(axis=1)
+  lanes = row_lanes(extent)
   table, num_warps = _table(lanes, n_pad, row_end.device)
   tiled, tiled_warps = _table(np.maximum(lanes, TILED_MIN_LANES), n_pad,
                               row_end.device)
   empty = np.flatnonzero(ends == 0)
   return RowSegments(table, num_warps, tiled, tiled_warps,
                      filled_rows=int(empty[0]) if empty.size else n_pad,
-                     short_rows=bool((lanes == 1).all()))
+                     short_rows=bool((lanes == 1).all()),
+                     chunk_extent=extent, n_pad=n_pad)
+
+
+def kernels_per_call(process: Union[str, ProcessExpr, None] = None) -> int:
+  """The kernels one :func:`ell_spmv` call of ``process`` launches on the
+  card: two for a lane-mixing process (the lane-vector grid's all-active
+  pass, then the grid), else one."""
+  return 2 if isinstance(process, ProcessExpr) and process.lane_mixing else 1
 
 
 def plain_process(process_op: str):
@@ -407,7 +466,8 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
       back to the host, unless both are given.
     segments: :func:`row_segments` of ``row_end`` (the ``cuda_ell`` backend
       keeps one per graph); computed, with a read back, when not given.
-    block_rows: warps per thread block, 1..32.
+    block_rows: warps per thread block, 1..32 (the lane-vector grid takes
+      at most 8).
     block_queries: query tile, 1..8 (default: the largest divisor of Q that
       is at most 8); a lane-mixing process takes the whole row.
   """
@@ -478,8 +538,13 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     row_end = torch.from_numpy(ends).to(cols.device)
   if segments is None:
     segments = row_segments(row_end)
-  table, num_warps = ((segments.table, segments.num_warps) if tile == 1
-                      else (segments.tiled_table, segments.tiled_num_warps))
+  if lanes:
+    team, _, load, slots = process.lane_layout
+    table, num_warps = segments.lane_table(team, slots)
+  elif tile == 1:
+    table, num_warps = segments.table, segments.num_warps
+  else:
+    table, num_warps = segments.tiled_table, segments.tiled_num_warps
   _check(row_end.shape == (n_pad,) and row_end.dtype == torch.int32
          and row_end.get_device() == index and table.get_device() == index,
          "row_end must be int32[n_pad] and segments its table, on the "
@@ -489,7 +554,10 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
   if (width % 4 == 0 and _aligned(cols, 16) and _aligned(mask, 4)
       and (not reads_edge or _aligned(vals, 4 * vals.element_size()))):
     flags |= _VEC_SLOTS
-  if q % 4 == 0 and tile % 4 == 0 and _aligned(msg, 16):
+  if lanes:
+    if _aligned(msg, load * msg.element_size()):
+      flags |= _VEC_MSG
+  elif q % 4 == 0 and tile % 4 == 0 and _aligned(msg, 16):
     flags |= _VEC_MSG
   if _aligned(active, 16):
     flags |= _VEC_ACTIVE
@@ -506,7 +574,8 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
       row_end.data_ptr(), table.data_ptr(), y.data_ptr(), recv.data_ptr(),
       _sync_words(index, stream).data_ptr(), msg.shape[0], table.shape[0],
       num_warps, width, q, tile, 1 if dprop is None else dprop.shape[1],
-      flags, warps, segments.filled_rows, n_pad, _DTYPE_CODE[msg.dtype],
+      flags, warps, segments.filled_rows, n_pad,
+      _lane_tag(index, stream) if lanes else 0, _DTYPE_CODE[msg.dtype],
       _DTYPE_CODE[vals.dtype] if reads_edge else -1,
       _DTYPE_CODE[dprop.dtype] if reads_dst else -1,
       _DTYPE_CODE[out_dtype], k_out, _REDUCE_CODE[reduce_kind],

@@ -18,7 +18,7 @@ dtype (``:138-145``), and ``kernels/ops.py`` hands it the program's own
    functor for the kernel's body (``csrc/ell_spmv_body.cuh``): a per-lane
    ``apply(m, e, d)`` for a lanewise process, or, for one that mixes the
    lane axis (:attr:`ProcessExpr.lanes`), an ``apply`` over a row's whole
-   K-vector, spread over a group of threads (the lane-vector grid).
+   K-vector, spread over a team of threads (the lane-vector grid).
 3. ``kernels/ell_spmv.py`` builds the functor's instance at its first
    launch, unless the expression equals one of the five shipped forms node
    for node (:attr:`ProcessExpr.shipped`), whose instances ship compiled.
@@ -86,7 +86,7 @@ import torch
 # lanes of a lane-form trace whose K is not given.
 _EDGES, _LANES = 4, 3
 # The widest message whose lanes a process may mix: the lane-vector grid
-# spreads a row's K lanes over at most 32 threads, at most 8 lanes each.
+# spreads a message's K lanes over a team of at most 32 threads.
 MAX_LANES = 256
 
 KINDS = {torch.float32: "f32", torch.float16: "f16", torch.bfloat16: "bf16",
@@ -261,6 +261,12 @@ class ProcessExpr:
     key = (kinds, self.nodes, self.out, self.lanes, self.k_out,
            self.dst_lanes)
     return hashlib.sha1(repr(key).encode()).hexdigest()[:12]
+
+  @functools.cached_property
+  def lane_layout(self) -> Tuple[int, int, int, int]:
+    """A lane-mixing process's :func:`lane_layout` ``(T, V, W, U)``."""
+    return lane_layout(self.lanes, torch.empty((), dtype=self.dtype
+                                              ).element_size())
 
   @property
   def name(self) -> str:
@@ -1027,45 +1033,55 @@ def _emit(expr: ProcessExpr, name: str) -> str:
       ""])
 
 
-def lane_group(k: int) -> Tuple[int, int]:
-  """``(G, L)``: the threads that share a row of a K-lane message (a power
-  of two up to 32) and the lanes each holds (lane ``sub + G * j`` on thread
-  ``sub``)."""
-  g = 1
-  while g < min(k, 32):
-    g *= 2
-  return g, -(-k // g)
+def lane_layout(k: int, itemsize: int) -> Tuple[int, int, int, int]:
+  """``(T, V, W, U)``: how the lane-vector grid spreads a K-lane message of
+  ``itemsize``-byte values.  A team of T threads (a power of two up to 32)
+  holds one message, V contiguous lanes a thread (lanes ``sub * V + j`` on
+  thread ``sub``): 16 bytes of lanes where K allows, more where K is over
+  32 of those.  A thread loads its lanes W at a time, the widest load of at
+  most 16 bytes that divides both V and K (so that every load is aligned
+  in each message row).  A team takes U slots of its row per step: as many
+  as keep 64 bytes of message loads in flight a thread, 1 to 4."""
+  per_load = 16 // itemsize
+  v = max(min(per_load, k), -(-k // 32))
+  t = 1
+  while t * v < k:
+    t *= 2
+  w = per_load
+  while v % w or k % w:
+    w //= 2
+  return t, v, w, max(1, min(4, 64 // (v * itemsize)))
 
 
-_GROUP = {"lane_sum": "group_sum", "lane_mean": "group_sum",
-          "lane_max": "group_max", "lane_min": "group_min"}
+_TEAM = {"lane_sum": "team_sum", "lane_mean": "team_sum",
+         "lane_max": "team_max", "lane_min": "team_min"}
 
 
 def _emit_lanes(expr: ProcessExpr, name: str) -> str:
   """A lane-mixing process's functor: ``apply`` over one edge's K lanes,
-  spread over the row's group of G threads (this thread: lanes ``sub + G *
-  j``, j < L), giving its lanes of the K_out results."""
+  spread over a team of T threads (this thread: lanes ``sub * V + j``,
+  j < V), giving its lanes of the K_out results."""
   k = expr.lanes
-  g, per = lane_group(k)
+  t, v, w_load, slots = expr.lane_layout
   w = _Writer(expr, lanes=True)
-  loop = "#pragma unroll\n    for (int j = 0; j < kPer; ++j) "
+  loop = "#pragma unroll\n    for (int j = 0; j < kVec; ++j) "
   lines = []
-  for var, t in (("m", expr.dtype), ("e", expr.edge_dtype),
-                 ("d", expr.dst_dtype)):
-    if t is None:
+  for var, dt in (("m", expr.dtype), ("e", expr.edge_dtype),
+                  ("d", expr.dst_dtype)):
+    if dt is None:
       continue
-    kind = KINDS[t]
+    kind = KINDS[dt]
     load = _LOAD.get(kind, "")
     ctype = _compute(kind)
     if var == "e" or (var == "d" and expr.dst_lanes == 1):
       index = "[0]" if var == "d" else ""
       lines.append(f"    const {ctype} {var} = {load}({var}_in{index});")
     else:
-      lines += [f"    {ctype} {var}[kPer];",
+      lines += [f"    {ctype} {var}[kVec];",
                 f"    {loop}{var}[j] = {load}({var}_in[j]);"]
   for i, (op, kind, shape, args, attr) in enumerate(expr.nodes):
     ctype = _compute(kind)
-    if op in _GROUP:
+    if op in _TEAM:
       (x,) = args
       acc = {"lane_sum": f"Num<{ctype}>::zero()",
              "lane_mean": f"Num<{ctype}>::zero()",
@@ -1075,9 +1091,9 @@ def _emit_lanes(expr: ProcessExpr, name: str) -> str:
               "lane_min": "min"}[op]
       lines += [
           f"    {ctype} v{i} = {acc};",
-          f"    {loop}if (sub + kGroup * j < kLanes) v{i} = "
+          f"    {loop}if (sub * kVec + j < kLanes) v{i} = "
           f"Num<{ctype}>::{fold}(v{i}, {w.ref(x, ctype)});",
-          f"    v{i} = {_GROUP[op]}<kGroup>(v{i}, group);"]
+          f"    v{i} = {_TEAM[op]}<kTeam>(v{i});"]
       if op == "lane_mean":
         inv = np.float32(1.0) / np.float32(k)
         lines.append(f"    v{i} = Num<float>::mul(v{i}, __uint_as_float("
@@ -1086,13 +1102,13 @@ def _emit_lanes(expr: ProcessExpr, name: str) -> str:
         lines.append(f"    v{i} = {_ROUND[kind]}(v{i});")
     elif op == "select":
       (x,) = args
-      lines.append(f"    const {ctype} v{i} = group_lane<kGroup>("
-                   f"{w.ref(x, ctype, str(attr // g))}, {attr % g}, group);")
+      lines.append(f"    const {ctype} v{i} = team_lane<kTeam>("
+                   f"{w.ref(x, ctype, str(attr % v))}, {attr // v});")
     elif op == "bcast":
-      lines += [f"    {ctype} v{i}[kPer];",
+      lines += [f"    {ctype} v{i}[kVec];",
                 f"    {loop}v{i}[j] = {w.ref(args[0], ctype)};"]
     elif shape == "vec":
-      lines += [f"    {ctype} v{i}[kPer];",
+      lines += [f"    {ctype} v{i}[kVec];",
                 f"    {loop}v{i}[j] = {w.text(op, kind, args, attr)};"]
     else:
       lines.append(f"    const {ctype} v{i} = "
@@ -1103,26 +1119,26 @@ def _emit_lanes(expr: ProcessExpr, name: str) -> str:
   else:
     lines.append(f"    out[0] = {w.store(expr.out, out_kind)};")
 
-  def ctype_of(t):
-    return CTYPES[KINDS[t or expr.dtype]]
+  def ctype_of(dt):
+    return CTYPES[KINDS[dt or expr.dtype]]
   return "\n".join([
-      f"{_header(expr)}, lane-mixing: K = {k} on {g} thread(s) of {per} "
-      f"lane(s), K_out = {expr.k_out}: {len(expr.nodes)} node(s)",
+      f"{_header(expr)}, lane-mixing: K = {k} on a team of {t} thread(s) "
+      f"of {v} lane(s), K_out = {expr.k_out}: {len(expr.nodes)} node(s)",
       f"struct {name} {{",
       f"  static constexpr bool kReadsEdge = "
       f"{'true' if expr.reads_edge else 'false'};",
       f"  static constexpr bool kReadsDst = "
       f"{'true' if expr.reads_dst else 'false'};",
-      f"  static constexpr int kLanes = {k}, kGroup = {g}, kPer = {per};",
+      f"  static constexpr int kLanes = {k}, kTeam = {t}, kVec = {v}, "
+      f"kLoad = {w_load}, kSlots = {slots};",
       f"  static constexpr int kOut = {expr.k_out}, "
       f"kDstLanes = {expr.dst_lanes};",
       "  __device__ __forceinline__ static void apply(",
-      f"      const {ctype_of(expr.dtype)} (&m_in)[kPer], "
+      f"      const {ctype_of(expr.dtype)} (&m_in)[kVec], "
       f"{ctype_of(expr.edge_dtype)} e_in,",
       f"      const {ctype_of(expr.dst_dtype)} "
-      "(&d_in)[kDstLanes == 1 ? 1 : kPer],",
-      f"      {CTYPES[out_kind]} (&out)[kOut == 1 ? 1 : kPer], int sub, "
-      "unsigned group) {",
+      "(&d_in)[kDstLanes == 1 ? 1 : kVec],",
+      f"      {CTYPES[out_kind]} (&out)[kOut == 1 ? 1 : kVec], int sub) {{",
       *lines,
       "  }",
       "};",

@@ -5,6 +5,8 @@
     python3 tools/time_ell_kernel.py --graph road:1024 --block-rows 4,8,16,32
     python3 tools/time_ell_kernel.py --graph road:1024 \\
         --compare <checkout A>/src <checkout B>/src
+    python3 tools/time_ell_kernel.py --graph netflix:build/netflix.npz \\
+        --only cf_one_leaf
 
 Times ``repro_torch.kernels.ell_spmv.ell_spmv`` from the package on
 ``PYTHONPATH`` (else this checkout's ``src``).  With ``--compare A B`` it
@@ -17,7 +19,12 @@ Graphs: ``--graph PATH.npz`` is the RMAT graph ``chip_smoke.py`` serves
 symmetrized) as ELL arrays, built at the first run and kept in ``PATH``;
 ``--graph road:SIDE`` is the examples' road grid
 (``examples/graph_analytics_suite_torch.py::grid_road_graph``, seed 0;
-side 1,024 gives 1,048,576 vertices and 4,190,208 edges), built each run.
+side 1,024 gives 1,048,576 vertices and 4,190,208 edges), built each run;
+``--graph netflix:PATH.npz`` is the item-to-user graph of collaborative
+filtering at the Netflix Prize's size as ``chip_smoke.py`` builds it
+(``bipartite_ratings(480,189, 17,770, 209, seed=11)``: 46,412,692 ratings;
+the rows are users, the sources items), kept in ``PATH`` like the RMAT
+graph; only its lane rows run there (no BFS or SSSP is recorded).
 
 Rows (milliseconds a launch; CUDA events, the median of 5 means of 20
 launches; and the kernel's own time from ``torch.profiler``'s device
@@ -37,7 +44,10 @@ bfloat16 (every source active), SSSP's ``m + e`` with float32 messages on
 the graph's edge values in float16 (the SSSP row's calls and frontiers),
 and, with every source active, a K = 16 message and property through the
 lane dot score ``(m * d).sum(-1)`` (max) and collaborative filtering's
-``(e - (m * d).sum(-1, keepdim=True)) * m`` (add).  Each at every
+``(e - (m * d).sum(-1, keepdim=True)) * m`` (add); and PageRank's
+``msg`` form over float16 messages (add) at Q = 1 and 8, whose sums the
+shipped half instances keep in float.  ``--only`` keeps the rows whose
+names start with one of its prefixes.  Each at every
 ``--block-rows`` given (default: the wrapper's own).  Each row carries its byte bound (the bytes
 the work needs over 3.35 TB/s, as ``chip_smoke.py`` counts them), and each
 card time the device events seen and the launches of its window.  The
@@ -84,6 +94,9 @@ ROWS = {
                           ("all", "10%", "all_but_one")),
     "gradient,f32,add,Q=1,Kd=1": (DST_OP, "add", "float32", 1, 1, ("all",)),
     "gradient,f32,add,Q=8,Kd=8": (DST_OP, "add", "float32", 8, 8, ("all",)),
+    # The shipped msg form over float16 messages (every source active).
+    "pagerank_f16,f16,add,Q=1": ("msg", "add", "float16", 1, None, ("all",)),
+    "pagerank_f16,f16,add,Q=8": ("msg", "add", "float16", 8, None, ("all",)),
     # SSSP's process written as the lambda e + m: a generated instance (the
     # trace is msg_plus_edge's with its operands swapped), timed where the
     # package traces processes.
@@ -109,6 +122,11 @@ def card_line() -> str:
       capture_output=True, text=True, check=True).stdout.strip()
 
 
+# Collaborative filtering at the Netflix Prize's size (chip_smoke.py's
+# CF_SHAPE and seed): users, items, ratings drawn per user.
+NETFLIX = (480_189, 17_770, 209, 11)
+
+
 def load_graph(spec: str, scale: int):
   """``(graph on the card, BFS/SSSP root, every-k of the recorded calls)``."""
   import numpy as np
@@ -118,8 +136,16 @@ def load_graph(spec: str, scale: int):
     from graph_analytics_suite_torch import grid_road_graph
     n, src, dst, w = grid_road_graph(int(spec.split(":", 1)[1]), seed=0)
     return G.build_ell(src, dst, w, n=n, device="cuda"), 0, ROAD_RECORD_EVERY
-  path = pathlib.Path(spec)
-  if not path.exists():
+  netflix = spec.startswith("netflix:")
+  path = pathlib.Path(spec.split(":", 1)[1] if netflix else spec)
+  if netflix and not path.exists():
+    from repro_torch.graphs import bipartite_ratings
+    nu, ni, per_user, seed = NETFLIX
+    users, items, ratings = bipartite_ratings(nu, ni, per_user, seed=seed)
+    arrays, _, width = G.ell_arrays(items + nu, users, ratings, n=nu + ni)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, n=nu + ni, width=width, **arrays)
+  elif not path.exists():
     from repro_torch.graphs import remove_self_loops, rmat_edges, symmetrize
     src, dst = rmat_edges(scale, 16, abc=(0.57, 0.19, 0.19), seed=0)
     src, dst = symmetrize(*remove_self_loops(src, dst))
@@ -190,9 +216,10 @@ LOST_SHARE = 0.01  # the share of a window's launches the profiler may lose
 WINDOW_PADS_S = (0.05, 0.5, 2.0)
 
 
-def device_ms(fn, calls: int) -> dict:
+def device_ms(fn, calls: int, kernels: int = 1) -> dict:
   """The card's kernel time a call of ``fn``, which makes ``calls`` calls
-  (the events of :func:`cuda_ms` also time the host issuing them):
+  of ``kernels`` kernels each (the events of :func:`cuda_ms` also time the
+  host issuing them):
   ``torch.profiler``'s device events in a window of at least 128 launches,
   summed, over the launches.  The window is padded by a few tens of ms of
   host sleep on both sides: the profiler keeps only the device events
@@ -201,14 +228,15 @@ def device_ms(fn, calls: int) -> dict:
   row; 2 of 3 events in a window of three launches).  A window that lost
   more than :data:`LOST_SHARE` of its launches' events, or saw that share
   more than launched, is taken again with the next pad of
-  :data:`WINDOW_PADS_S`, and after the last this raises.  Returns ``ms``, ``events`` seen and ``launches`` of the window kept (one
-  kernel a launch)."""
+  :data:`WINDOW_PADS_S`, and after the last this raises.  Returns ``ms``
+  (all of a call's kernels), ``events`` seen and ``launches`` (kernels) of
+  the window kept."""
   import time
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   repeats = max(1, -(-128 // calls))
-  launches = repeats * calls
+  launches = repeats * calls * kernels
   fn()
   torch.cuda.synchronize()
   seen = []
@@ -221,16 +249,35 @@ def device_ms(fn, calls: int) -> dict:
       time.sleep(pad_s)
     # A kernel is one (stream, name, start, end): the profiler can report
     # an event twice.
-    kernels = list({(e.device_resource_id, e.name, e.time_range.start,
-                     e.time_range.end): e for e in prof.events()
-                    if e.device_type == DeviceType.CUDA}.values())
-    seen.append(len(kernels))
-    if abs(len(kernels) - launches) <= launches * LOST_SHARE:
-      busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-      return {"ms": busy / len(kernels), "events": len(kernels),
+    seen_kernels = list({(e.device_resource_id, e.name, e.time_range.start,
+                          e.time_range.end): e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA}.values())
+    seen.append(len(seen_kernels))
+    if abs(len(seen_kernels) - launches) <= launches * LOST_SHARE:
+      busy = sum(e.time_range.elapsed_us() for e in seen_kernels) / 1e3
+      return {"ms": busy / (repeats * calls), "events": len(seen_kernels),
               "launches": launches}
   raise RuntimeError(f"the profiler saw {seen} device events in {len(seen)} "
                      f"windows of {launches} launches each")
+
+
+def kernels_of(fn) -> int:
+  """The kernels one call of ``fn`` launches (a library call may launch
+  several): the device events of one call in a window padded by 0.5 s."""
+  import time
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    time.sleep(0.5)
+    fn()
+    torch.cuda.synchronize()
+    time.sleep(0.5)
+  return len({(e.device_resource_id, e.name, e.time_range.start,
+               e.time_range.end) for e in prof.events()
+              if e.device_type == DeviceType.CUDA})
 
 
 def csr_of(g):
@@ -289,7 +336,10 @@ def measure(args) -> dict:
   ext = {"row_end": g.row_end, "mask_prefix": g.mask_prefix,
          "segments": ell.row_segments(g.row_end)}
   n = g.n
-  recorded = record(g, root, every)
+  rows = {name: row for name, row in ROWS.items()
+          if not args.only or name.startswith(tuple(args.only))}
+  recorded = (record(g, root, every)
+              if any("recorded" in row[5] for row in rows.values()) else {})
   gen = torch.Generator(device="cuda").manual_seed(7)
   every_src = torch.ones((n,), dtype=torch.bool, device="cuda")
   frontiers = {"all": every_src,
@@ -303,7 +353,7 @@ def measure(args) -> dict:
   bounds, library = {}, {}
   csr = None
   half_g = None
-  for name, (op, red, dt, q, kd, fronts) in ROWS.items():
+  for name, (op, red, dt, q, kd, fronts) in rows.items():
     dtype = getattr(torch, dt)
     graph, k_out, out_size = g, None, None
     if op in TRACED:
@@ -340,6 +390,10 @@ def measure(args) -> dict:
     bounds[name] = {f: bound_ms(graph, valid_slots, edge, q, kd,
                                 msg.element_size(), calls, k_out, out_size)
                     for f, calls in runs.items()}
+    # Kernels a call launches (the lane-vector grid's pass and grid, where
+    # the package says so).
+    kernels = getattr(ell, "kernels_per_call",
+                      lambda p: 1)(form.get("process"))
     for b in block_rows:
       key = str(b or "default")
       row = ms[key][name] = {}
@@ -350,16 +404,16 @@ def measure(args) -> dict:
             ell.ell_spmv(graph.cols, graph.vals, graph.mask, m, a, **form,
                          reduce_kind=red, dprop=dprop, block_rows=b, **ext)
         row[f] = cuda_ms(run, iters=max(1, 20 // len(calls))) / len(calls)
-        drow[f] = device_ms(run, len(calls))
-    if op == "msg":
+        drow[f] = device_ms(run, len(calls), kernels)
+    if op == "msg" and dtype == torch.float32:
       csr = csr_of(g) if csr is None else csr
       y, _ = ell.ell_spmv(g.cols, g.vals, g.mask, msg, every_src,
                           process_op=op, reduce_kind=red, **ext)
       torch.testing.assert_close(torch.sparse.mm(csr, msg), y, rtol=1e-4,
                                  atol=1e-4 * float(y.abs().max()))
       library[name] = cuda_ms(lambda: torch.sparse.mm(csr, msg))
-      library[name + ",device"] = device_ms(
-          lambda: torch.sparse.mm(csr, msg), 1)
+      spmm = lambda: torch.sparse.mm(csr, msg)  # noqa: E731
+      library[name + ",device"] = device_ms(spmm, 1, kernels_of(spmm))
   return {"label": args.label, "card": card_line(), "package": ell.__file__,
           "graph": args.graph, "n": n, "n_pad": g.n_pad, "width": g.width,
           "valid_slots": valid_slots,
@@ -375,7 +429,7 @@ def compare(args) -> int:
                                   args.compare[1], args.compare[0])):
     argv = [sys.executable, __file__, "--graph", args.graph, "--scale",
             str(args.scale), "--block-rows", args.block_rows, "--label",
-            label]
+            label] + [f"--only={o}" for o in args.only or ()]
     env = dict(os.environ, PYTHONPATH=str(pathlib.Path(path).resolve()))
     proc = subprocess.run(argv, env=env, capture_output=True, text=True,
                           check=False)
@@ -419,6 +473,9 @@ def main(argv=None) -> int:
                   help="comma-separated warps per block to time besides "
                   "the wrapper's default")
   ap.add_argument("--label", default="this checkout")
+  ap.add_argument("--only", action="append",
+                  help="time only the rows whose names start with this "
+                  "(repeatable)")
   ap.add_argument("--compare", nargs=2, metavar=("SRC_A", "SRC_B"),
                   help="run once per PYTHONPATH, in the order A, B, B, A")
   args = ap.parse_args(argv)
