@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.backends.plan import Plan
 from repro_torch.core.vertex_program import GraphProgram
 
@@ -28,11 +29,14 @@ class Backend:
     name: registry key (also the legacy string spelling).
     container: preferred graph container — ``"dense" | "coo" | "ell"``.
     priority: structural-auto tie-break; higher is tried first.
+    span: the profiler range around :meth:`execute`
+      (``graphmat.spmv.<name>``), set by :func:`register`.
   """
 
   name: str = "?"
   container: str = "coo"
   priority: int = 0
+  span: str
 
   def supports(self, graph, msg: PyTree, dst_prop: PyTree,
                program: GraphProgram) -> bool:
@@ -64,6 +68,7 @@ def register(backend: Backend, *, replace: bool = False) -> Backend:
   if backend.name in _REGISTRY and not replace:
     raise ValueError(
         f"backend {backend.name!r} already registered (pass replace=True)")
+  backend.span = tracing.SPMV + backend.name
   _REGISTRY[backend.name] = backend
   return backend
 

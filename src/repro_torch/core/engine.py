@@ -8,7 +8,8 @@ The reference runs the loop as one ``jax.lax.while_loop``.  Here
 reads one number from the device per superstep, and
 :func:`run_batched_rounds` runs a fixed number of supersteps with no host
 read inside, so that it can later be captured as a CUDA graph.  Counters are
-int32 (a torch sum of bools would be int64).
+int32 (a torch sum of bools would be int64).  Each superstep and each host
+read is a profiler span (:mod:`repro_torch.tracing`).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, tracing
 from repro_torch.core import spmv as spmv_lib
 from repro_torch.core.backends.plan import AUTO_PLAN, Plan, PlanLike, as_plan
 from repro_torch.core.vertex_program import GraphProgram
@@ -50,6 +51,12 @@ def _superstep(graph, program: GraphProgram, state: EngineState,
   return EngineState(new_prop, changed, state.iteration + 1, _count(changed))
 
 
+def _any_active(state: EngineState) -> bool:
+  """The host's read of the frontier's count, once a superstep."""
+  with tracing.span(tracing.HOST_READ):
+    return int(state.num_active) > 0
+
+
 def run_graph_program(graph, program: GraphProgram, init_prop: PyTree,
                       init_active: torch.Tensor, *,
                       max_iters: int = 0x7FFFFFF0,
@@ -62,8 +69,9 @@ def run_graph_program(graph, program: GraphProgram, init_prop: PyTree,
                       torch.zeros((), dtype=torch.int32, device=dev),
                       _count(init_active))
   it = 0
-  while it < max_iters and int(state.num_active) > 0:
-    state = _superstep(graph, program, state, plan)
+  while it < max_iters and _any_active(state):
+    with tracing.span(tracing.SUPERSTEP):
+      state = _superstep(graph, program, state, plan)
     it += 1
   return state
 
@@ -82,7 +90,8 @@ def run_fixed_iters(graph, program: GraphProgram, init_prop: PyTree,
   all_active = torch.ones_like(init_active)
   num_all = _count(all_active)
   for _ in range(num_iters):
-    state = _superstep(graph, program, state, plan)
+    with tracing.span(tracing.SUPERSTEP):
+      state = _superstep(graph, program, state, plan)
     if keep_all_active:
       state = state._replace(active=all_active, num_active=num_all)
   return state
@@ -150,6 +159,12 @@ def _batched_superstep(graph, program: GraphProgram,
       iters=state.iters + live.to(torch.int32))
 
 
+def _all_done(state: BatchedEngineState) -> bool:
+  """The host's read of every column's ``done``, once a superstep."""
+  with tracing.span(tracing.HOST_READ):
+    return bool(state.done.all())
+
+
 def run_batched(graph, program: GraphProgram, init_prop: PyTree,
                 init_active: torch.Tensor, *, max_iters: int = 0x7FFFFFF0,
                 backend: PlanLike = AUTO_PLAN) -> BatchedEngineState:
@@ -159,8 +174,9 @@ def run_batched(graph, program: GraphProgram, init_prop: PyTree,
   plan = as_plan(backend)
   state = init_batched_state(init_prop, init_active)
   it = 0
-  while it < max_iters and not bool(state.done.all()):
-    state = _batched_superstep(graph, program, state, plan)
+  while it < max_iters and not _all_done(state):
+    with tracing.span(tracing.SUPERSTEP):
+      state = _batched_superstep(graph, program, state, plan)
     it += 1
   return state
 
@@ -195,7 +211,8 @@ def run_batched_rounds(graph, program: GraphProgram,
                      device=state.done.device)
   for t in range(num_steps):
     any_live = ~state.done.all()
-    s2 = _batched_superstep(graph, program, state, plan)
+    with tracing.span(tracing.SUPERSTEP):
+      s2 = _batched_superstep(graph, program, state, plan)
     state = _tree.tree_map(lambda a, b: torch.where(any_live, a, b),
                            s2, state)
     trace[t] = torch.where(any_live, state.num_active.sum(dtype=torch.int32),

@@ -32,7 +32,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, tracing
 from repro_torch.core import graph as graphlib
 from repro_torch.core import semiring as sr
 from repro_torch.core.vertex_program import GraphProgram
@@ -352,10 +352,11 @@ def merge_spill(g: graphlib.EllGraph, y: PyTree, recv: torch.Tensor,
   """Fold the hub rows' spilled edges into the ELL result through COO."""
   if g.spill is None:
     return y, recv
-  y_s, recv_s = spmv_coo(g.spill, msg, active, dst_prop, program)
-  red = program.reduce_fn()
-  y = _tree_where(recv_s, _tree_where(recv, red(y, y_s), y_s), y)
-  return y, recv | recv_s
+  with tracing.span(tracing.SPILL):
+    y_s, recv_s = spmv_coo(g.spill, msg, active, dst_prop, program)
+    red = program.reduce_fn()
+    y = _tree_where(recv_s, _tree_where(recv, red(y, y_s), y_s), y)
+    return y, recv | recv_s
 
 
 def spmv_ell(g: graphlib.EllGraph, msg: PyTree, active: torch.Tensor,
@@ -383,4 +384,6 @@ def spmv(graph, msg: PyTree, active: torch.Tensor, dst_prop: PyTree,
   from repro_torch.core import backends as backends_lib  # lazy: import cycle
   plan = backends_lib.as_plan(backend)
   impl = backends_lib.resolve(plan, graph, msg, dst_prop, program)
-  return impl.execute(graph, msg, active, dst_prop, program, plan, with_recv)
+  with tracing.span(impl.span):
+    return impl.execute(graph, msg, active, dst_prop, program, plan,
+                        with_recv)

@@ -7,7 +7,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, tracing
 from repro_torch.core import graph as graphlib
 from repro_torch.core.spmv import _unpermute, merge_spill
 from repro_torch.core.vertex_program import DST_FORMS, GraphProgram
@@ -48,7 +48,8 @@ def spmv_ell_cuda(g: graphlib.EllGraph, msg: PyTree, active: torch.Tensor,
   ``:92``): a ``[n, K]`` message with an ``[E]`` result gives ``y [n]``,
   with an ``[E, 1]`` one ``y [n, 1]``.  ``segments`` is the graph's
   :func:`~repro_torch.kernels.ell_spmv.row_segments`, computed when not
-  given.
+  given.  The kernel's call (its checks, table choice and launch) is the
+  profiler span ``graphmat.kernels.ell_spmv``.
   """
   if block_slots is not None:
     raise ValueError("cuda_ell: the kernel has no slot tiling (block_slots)")
@@ -76,11 +77,13 @@ def spmv_ell_cuda(g: graphlib.EllGraph, msg: PyTree, active: torch.Tensor,
     dpp = (dp[:, None] if dp.ndim == 1 else dp).contiguous()
   form = ({"process_op": process} if isinstance(process, str)
           else {"process": process})
-  y2, recv_i8 = ell_spmv(g.cols, g.vals, g.mask, m2, active.contiguous(),
-                         **form, reduce_kind=program.reduce_kind, dprop=dpp,
-                         row_end=g.row_end, mask_prefix=g.mask_prefix,
-                         segments=segments, block_rows=block_rows,
-                         block_queries=block_queries)
+  with tracing.span(tracing.ELL_SPMV):
+    y2, recv_i8 = ell_spmv(g.cols, g.vals, g.mask, m2, active.contiguous(),
+                           **form, reduce_kind=program.reduce_kind,
+                           dprop=dpp, row_end=g.row_end,
+                           mask_prefix=g.mask_prefix, segments=segments,
+                           block_rows=block_rows,
+                           block_queries=block_queries)
   scalar_result = scalar_msg or (
       isinstance(process, process_expr.ProcessExpr) and process.squeezed)
   y_packed = _tree.tree_unflatten(treedef,

@@ -16,8 +16,10 @@ Rounds of ``steps_per_round`` supersteps run with no host read inside
 the scheduler retires converged columns mid-flight and swaps queued queries
 into the freed slots *without restarting* the unconverged neighbors — slot
 state persists across the host round-trip (continuous batching, not static
-batching).  Per-round and per-superstep metrics land in a
-:class:`~repro_torch.service.metrics.Counters`.
+batching).  Per-round and per-query metrics land in a
+:class:`~repro_torch.service.metrics.Counters`: ``queue.wait_ms`` from
+submission to admission, ``query.in_slot_ms`` from admission to
+retirement.
 
 Threading model
 ---------------
@@ -90,7 +92,7 @@ from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
 import numpy as np
 import torch
 
-from repro_torch import _tree
+from repro_torch import _tree, tracing
 from repro_torch.core.backends import Plan, PlanLike, Planner, as_plan
 from repro_torch.core.engine import (init_batched_state, mask_columns,
                                      run_batched_rounds)
@@ -339,6 +341,7 @@ class GraphQueryServer:
     # ticket waiting on the same cache key.
     self._waiters: Dict[Any, list] = {}  # cache key -> [qid, ...]
     self._slot_key: list = [None] * num_slots  # cache key or None per slot
+    self._slot_admitted = [0.0] * num_slots    # _clock() at admission
     self._tickets: Dict[int, _Ticket] = {}
     self._pending_deadlines: Set[int] = set()
     self._wake_listeners: List[threading.Event] = []
@@ -765,13 +768,15 @@ class GraphQueryServer:
       req = self._policy.pop_next()
       if req is None:
         continue
-      wait_ms = (self._clock() - req.enqueued_at) * 1000.0
+      now = self._clock()
+      wait_ms = (now - req.enqueued_at) * 1000.0
       self.counters.observe("queue.wait_ms", wait_ms)
       self.counters.observe_labeled("queue.wait_ms", wait_ms,
                                     tenant=req.tenant)
       prop_col, active_col = self.family.init_column(req.spec, self.device)
       self._install_locked(prop_col, active_col, slot)
       self._slot_key[slot] = req.key
+      self._slot_admitted[slot] = now
       admitted += 1
     if admitted:
       self.counters.inc("queries.admitted", admitted)
@@ -807,6 +812,9 @@ class GraphQueryServer:
       self._slot_key[slot] = None
       retired += 1
       self.counters.inc("slots.retired")
+      self.counters.observe(
+          "query.in_slot_ms",
+          (self._clock() - self._slot_admitted[slot]) * 1000.0)
       self.counters.observe("query.supersteps_to_converge",
                             float(iters[slot]))
       if forced:
@@ -824,8 +832,8 @@ class GraphQueryServer:
     concurrently (an engine lock serializes steppers), but intended for a
     single driver thread.
     """
-    with self._engine_lock:
-      with self._cond:
+    with self._engine_lock, tracing.span(tracing.ROUND):
+      with self._cond, tracing.span(tracing.ADMIT):
         self._expire_locked(self._clock() if now is None else now)
         self._admit_locked()
         in_flight = sum(1 for q in self._slot_key if q is not None)
@@ -837,19 +845,12 @@ class GraphQueryServer:
           self.graph, self.program, self._state, self.steps_per_round,
           backend=self.plan)
       self.counters.inc("rounds")
-      trace = trace.cpu().numpy()
-      real = trace[trace >= 0]
-      self.counters.inc("supersteps", float(real.size))
-      n = _tree.tree_leaves(self._state.prop)[0].shape[0]
-      for total_active in real:
-        # Frontier occupancy: fraction of the [n, Q] frontier matrix set.
-        self.counters.observe("superstep.frontier_fill",
-                              float(total_active) / float(n * self.num_slots))
-        self.counters.observe("superstep.frontier_active",
-                              float(total_active))
+      with tracing.span(tracing.ROUND_READ):
+        trace = trace.cpu().numpy()
+      self.counters.inc("supersteps", float((trace >= 0).sum()))
       self.counters.observe("round.slot_utilization",
                             in_flight / self.num_slots)
-      with self._cond:
+      with self._cond, tracing.span(tracing.RETIRE):
         self._retire_locked()
       return True
 
