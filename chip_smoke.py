@@ -40,9 +40,11 @@ Phases, in order; any failure exits non-zero before the result line:
    generated instance, and so the mixed-dtype and lane-mixing programs
    (the damped PageRank in
    bfloat16, SSSP's ``m + e`` on the graph's edge values in float16, one
-   superstep of a lane dot score over a K = 16 message and property); then
-   run the BFS, the SSSP and the 32 queries again with the kernel's calls
-   recorded;
+   superstep of a lane dot score over a K = 16 message and property),
+   every spill merge among them on the COO kernel (``kernels/coo_spmv.py``,
+   its launches and its CUDA calls left on the PyTorch path counted from
+   the first query on); then run the BFS, the SSSP and the 32 queries
+   again with the kernel's calls recorded;
 4. time the ELL kernel and its plain version with CUDA events on the
    recorded calls of BFS and SSSP (their frontiers, superstep by superstep)
    and with every source active for PageRank (in turns with
@@ -51,6 +53,11 @@ Phases, in order; any failure exits non-zero before the result line:
    the shipped ``msg_plus_edge`` on the SSSP's recorded calls (the card's
    time, in turns), the mixed-dtype and lane-mixing instances' rows, and
    the kernel at four frontiers (all, 10% and all but one source active);
+   then the COO kernel on the graph's spill (SSSP at Q = 1 with every and
+   10% of sources active and at Q = 8, PageRank's add in turns with
+   ``torch.sparse.mm``), each held against ``_spmv_coo_torch`` on the same
+   tensors (min bitwise, add within ``COO_ADD_TOL``) beside its byte bound
+   and its message gathers' floor (``tools/gather_floor.cu``);
 5. the paper's five algorithms and its Table 3: PageRank (20 sweeps), BFS
    and SSSP through ``Plan("cuda_ell")`` on the phase-3 graph against the
    native baselines on its edges (BFS and SSSP bitwise, PageRank at rtol
@@ -63,8 +70,9 @@ Phases, in order; any failure exits non-zero before the result line:
    baseline in turns, and the five ratios beside the paper's; then CF with
    its process over the latent matrix as the one leaf, phase U through
    ``Plan("cuda_ell")`` on the item-to-user graph built as ELL (the
-   lane-vector grid), 2 sweeps held to the port's ``coo`` CF within
-   ``CF_TOL``, and its row of the kernels line;
+   lane-vector grid), phase V on the COO kernel (its launches counted), 2
+   sweeps held to the port's ``coo`` CF within ``CF_TOL``, and the rows of
+   both kernels on the sweep's calls;
 6. hold the selective-scan kernel against its plain version
    over the shapes of the reference's kernel test, shapes that run each
    choice of lanes per channel, and edge cases at the lanes of the prefill
@@ -355,7 +363,8 @@ def paired_ms(fn_a, fn_b, iters: int = 20, repeats: int = 5,
   return statistics.median(a), statistics.median(b)
 
 
-def device_busy(fn, top: int = 6, pad_s: float = 0.05) -> dict:
+def device_busy(fn, top: int = 6, pad_s: float = 0.05,
+                only: str = "") -> dict:
   """Run ``fn`` once under ``torch.profiler`` (device activity only, so the
   host pays no tracing cost per operation): the union of the card's kernel
   intervals against the CUDA-event time of the call, and the kernels that
@@ -365,7 +374,8 @@ def device_busy(fn, top: int = 6, pad_s: float = 0.05) -> dict:
   that fall inside its window on the host's clock, and late in a long
   process a window of a few short launches came back empty (the road
   grid's PageRank row, 20 launches of 0.018 ms, in every whole run of
-  PR 22) while longer windows in the same phase lost a share of theirs."""
+  PR 22) while longer windows in the same phase lost a share of theirs.
+  ``only``: count only the kernels whose names hold it."""
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
@@ -383,7 +393,8 @@ def device_busy(fn, top: int = 6, pad_s: float = 0.05) -> dict:
     t_done = time.perf_counter()
     time.sleep(pad_s)
   wall_ms = start.elapsed_time(end)
-  events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+  events = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and only in e.name]
   # A kernel is one (stream, name, start, end): a road-grid window once
   # gave half the card's time a launch of its neighbours, as if it had
   # counted each event twice.
@@ -427,10 +438,11 @@ LOST_SHARE = 0.01  # the share of a window's launches the profiler may lose
 WINDOW_PADS_S = (0.05, 0.5, 2.0)
 
 
-def launch_busy(fn, launches: int, kernels: int = 1) -> dict:
-  """:func:`device_busy` of ``fn``, which makes ``launches`` launches of
-  ``kernels`` kernels each, with ``ms``, the card's time a launch (all its
-  kernels).  A window whose
+def launch_busy(fn, launches: int, kernels: int = 1,
+                only: str = "") -> dict:
+  """:func:`device_busy` of ``fn`` (over the kernels named with ``only``),
+  which makes ``launches`` launches of ``kernels`` kernels each, with
+  ``ms``, the card's time a launch (all its kernels).  A window whose
   profiler lost more than :data:`LOST_SHARE` of the launches' events, or
   saw that share more than launched, is taken again with the next pad of
   :data:`WINDOW_PADS_S`; after the last ``ms`` is None (not measured).
@@ -439,7 +451,7 @@ def launch_busy(fn, launches: int, kernels: int = 1) -> dict:
   sat."""
   seen, twice, placed = [], [], []
   for pad_s in WINDOW_PADS_S:
-    busy = device_busy(fn, pad_s=pad_s)
+    busy = device_busy(fn, pad_s=pad_s, only=only)
     seen.append(busy["kernels"])
     twice.append(busy["duplicates"])
     placed.append(busy["placed"])
@@ -1047,6 +1059,7 @@ def phase_slice(scale: int, num_queries: int, ell_mod):
   from repro_torch.core.engine import run_fixed_iters
   from repro_torch.algos.bfs import UNREACHED
   from repro_torch.core.backends import Plan
+  from repro_torch.kernels import coo_spmv as coo_mod
   from repro_torch.service import (BfsFamily, GraphQueryServer, QuerySpec,
                                    ServerDriver)
 
@@ -1073,6 +1086,8 @@ def phase_slice(scale: int, num_queries: int, ell_mod):
   half = num_queries // 2
 
   ell_mod.launches.reset()
+  coo_mod.launches.reset()
+  coo_mod.torch_path.update(dict.fromkeys(coo_mod.torch_path, 0))
   torch.cuda.synchronize()
   t0 = time.perf_counter()
   server = GraphQueryServer(g, BfsFamily(n), num_slots=8, backend=kernel)
@@ -1172,7 +1187,17 @@ def phase_slice(scale: int, num_queries: int, ell_mod):
            "launches_single": ell_mod.launches.single,
            "launches_multi": ell_mod.launches.multi,
            "launches_serve": launches_serve,
-           "single_bfs_s": t_bfs}
+           "single_bfs_s": t_bfs,
+           "coo_launches": dict(coo_mod.launches.by_config),
+           "coo_torch_path": dict(coo_mod.torch_path)}
+  # The spill merge of every call above (cuda_ell's and Plan("ell")'s) on
+  # the COO kernel; a CUDA call that kept the PyTorch path is counted by
+  # its reason.
+  log(f"phase 3: COO kernel launches {stats['coo_launches']}, CUDA calls "
+      f"on the PyTorch path {stats['coo_torch_path']}")
+  if g.spill is not None and coo_mod.launches.total == 0:
+    raise AssertionError("phase 3: the spill merge never launched the COO "
+                         "kernel")
 
   # Programs written only as lambdas: their traced processes run generated
   # instances of the kernel (the shipped forms' counts were read above).
@@ -1852,8 +1877,168 @@ def traced_rows(phase: str, g, ell_mod, ref_mod, gen, csr: dict,
   return entries, records, paired
 
 
+# The COO kernel's rows of the kernels line.  Its float sums are held to
+# this share of each destination's sum of |terms| against the PyTorch path:
+# two float32 sums of n terms in different orders differ by about
+# sqrt(n) * 6e-8 of it (4e-5 at CF's largest run, 5e5 ratings), and a
+# dropped edge of any run under 10^4 edges, or a tile's dropped carry,
+# exceeds it.
+COO_ADD_TOL = 1e-4
+
+
+def gather_floor_ms(ids, n_src: int, vecs: int) -> dict:
+  """The card's time of ``tools/gather_floor.cu`` over ``ids``: each id's
+  row of a float32 table ``[n_src, 4 * vecs]`` (16 bytes a thread) read
+  and summed, with nothing else; None where every window lost events."""
+  import torch
+  from repro_torch.kernels import _build
+  if str(ROOT / "tools") not in sys.path:
+    sys.path.insert(0, str(ROOT / "tools"))
+  import gather_floor
+  lib = _build.CudaLibrary(str(ROOT / "tools" / "gather_floor.cu"),
+                           gather_floor._bind).load()
+  blocks = lib.gather_floor_blocks(256)
+  table = torch.rand((n_src, 4 * vecs), device="cuda")
+  out = torch.empty(blocks * 256, device="cuda")
+  stream = torch.cuda.current_stream().cuda_stream
+
+  def launch():
+    rc = lib.gather_floor_launch(ids.data_ptr(), ids.numel(),
+                                 table.data_ptr(), vecs, out.data_ptr(),
+                                 blocks, 256, stream)
+    if rc != 0:
+      raise RuntimeError(f"gather_floor_launch failed: {rc}")
+  launch()
+  busy = launch_busy(lambda: [launch() for _ in range(32)], 32,
+                     only="gather_kernel")
+  return {"ms": busy["ms"], "bytes_a_row": 16 * vecs}
+
+
+def time_coo(phase: str, name: str, g, msg, active, dprop, prog,
+             launches: dict, tiled: bool = False, library=None,
+             library_null=None):
+  """One row of the kernels line: the COO kernel (``kernels/coo_spmv.py``)
+  on COO graph ``g`` for one call, held against its plain version on the
+  same card tensors (``core/spmv.py::_spmv_coo_torch``, or
+  ``_spmv_coo_tiled_torch`` where ``tiled``, the plan CF's phase V takes):
+  recv, min and max bitwise, add within :data:`COO_ADD_TOL` of each
+  destination's sum of |terms|.  Timed with CUDA events (in turns with
+  ``library``, a call computing the same, where given), and on the card by
+  :func:`launch_busy` over its own kernels (the frontier pass, the reduce,
+  the carry pass where a run crosses tiles).  The bound is the bytes the
+  call needs: per real edge 4 of ``src`` and 4 of the edge value where the
+  process reads it; each source a valid edge names, its message and active
+  flag once; each destination with an edge, its result and recv once, and
+  its property where read.  The message gathers' floor (:func:`
+  gather_floor_ms` over the valid edges' sources) is logged beside it.
+  ``launches``: the COO counter's counts on the main path."""
+  import torch
+  from repro_torch.core import spmv as S
+  from repro_torch.kernels import coo_spmv as K
+  call = K.route(g, msg, active, dprop, prog)
+  if call is None:
+    raise AssertionError(f"{phase}: {name}: the COO kernel did not take the "
+                         f"call ({K.torch_path})")
+
+  def kernel():
+    return K.spmv(call, g, active)
+
+  def plain():
+    if tiled:
+      return S._spmv_coo_tiled_torch(g, msg, active, dprop, prog, None, True)
+    return S._spmv_coo_torch(g, msg, active, dprop, prog)
+
+  (y, recv), (y_t, recv_t) = kernel(), plain()
+  if not torch.equal(recv, recv_t):
+    raise AssertionError(f"{phase}: {name}: recv differs")
+  if prog.reduce_kind == "add":
+    r, _, dst = S._coo_process(g, 0, g.capacity, msg, active, dprop, prog)
+    size = torch.zeros_like(y_t).index_add_(0, dst, r.abs())
+    del r, dst
+    gap = (y - y_t).abs()
+    err = float(gap.max())
+    share = float((gap / size.clamp(min=1e-30)).max())
+    if not bool((gap <= COO_ADD_TOL * size).all()):
+      raise AssertionError(f"{phase}: {name}: |kernel - plain| reaches "
+                           f"{share:.3g} of a sum of |terms| (> "
+                           f"{COO_ADD_TOL})")
+    del size, gap
+  else:
+    if not torch.equal(y, y_t):
+      raise AssertionError(f"{phase}: {name}: y differs")
+    err, share = 0.0, 0.0
+  del y_t, recv_t
+  plain_ms = cuda_ms(plain, iters=3, warmup=1)
+  kernels = 3 if call.table.num_splits else 2
+  reps = 128
+  busy = launch_busy(lambda: [kernel() for _ in range(reps)], reps, kernels,
+                     only="coo_gather")
+  library_ms = None
+  if library is not None:
+    y_lib = library()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y_lib.reshape(y.shape), y, rtol=1e-4,
+                               atol=1e-4 * float(y.abs().max()))
+    del y_lib
+    kernel_ms, library_ms = paired_ms(kernel, library)
+  else:
+    kernel_ms = cuda_ms(kernel, repeats=5)
+  del y, recv
+  process = call.process
+  traced = not isinstance(process, str)
+  edge = (process.reads_edge if traced
+          else process in ("msg_plus_edge", "msg_times_edge"))
+  reads_dst = traced and process.reads_dst
+  k_out = K._out(call)[1]
+  real = g.emask
+  valid = real & active[g.src]
+  sources = int(torch.unique(g.src[valid]).numel())
+  dsts = int(torch.unique(g.dst[real]).numel())
+  row = msg.shape[1] if msg.ndim == 2 else 1
+  size = msg.element_size()
+  need = (int(real.sum()) * (4 + (g.w.element_size() if edge else 0))
+          + sources * (row * size + 1) + dsts * (k_out * size + 1))
+  if reads_dst:
+    need += dsts * (dprop.shape[1] if dprop.ndim == 2 else 1) * size
+  bound_ms = need / H100_BYTES_PER_S * 1e3
+  floor = gather_floor_ms(call.table.src[valid].contiguous(), msg.shape[0],
+                          max(1, row // 4))
+  lanes = traced and process.lane_mixing
+  entry = {
+      "name": name, "route": "cuda",
+      "source": ("src/repro_torch/kernels/csrc/coo_spmv_body.cuh"
+                 if traced and process.shipped is None
+                 else "src/repro_torch/kernels/csrc/coo_spmv.cu"),
+      "replaces": "none: XLA's scatters in src/repro/core/spmv.py:197",
+      "launches": int(launches.get("coo/" + K.config_key(
+          row, msg.dtype, prog.reduce_kind,
+          process.name if traced else process, lanes), 0)),
+      "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+      "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+  record = {"device_ms": busy["ms"], "window_launches": reps,
+            "device_events": busy["kernels"],
+            "device_events_by_window": busy["windows"],
+            "kernels_a_call": kernels, "err_share_of_terms": share,
+            "bound_share": bound_ms / kernel_ms,
+            "device_bound_share": (None if busy["ms"] is None
+                                   else bound_ms / busy["ms"]),
+            "bytes": need, "edges": int(real.sum()), "sources": sources,
+            "destinations": dsts, "tiles": call.table.num_tiles,
+            "splits": call.table.num_splits, "gather_floor": floor,
+            "library_null": library_null}
+  log(f"{phase}: {name}: kernel {kernel_ms:.4f} ms a call, on the card "
+      f"{busy['ms']} ms ({busy['windows']} events of {reps} x {kernels}), "
+      f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes; share "
+      f"{record['bound_share']:.3f}), gather floor {floor['ms']} ms, "
+      f"library {library_ms}, max abs err {err:.3g} ({share:.3g} of a sum "
+      f"of |terms|)"
+      + ("" if library_null is None else f" ({library_null})"))
+  torch.cuda.empty_cache()
+  return entry, record
+
+
 def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict,
-                 traced_launches: dict):
+                 traced_launches: dict, coo_launches: dict):
   import torch
   from repro_torch.core.spmv import merge_spill
   from repro_torch.kernels.ops import spmv_ell_cuda
@@ -1952,6 +2137,37 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict,
         "spill_merge_ms": cuda_ms(lambda: merge_spill(
             g, y, recv, m, active, m, prog), iters=10)}
   log("phase 4: superstep split " + json.dumps(split))
+
+  # The COO kernel on this graph's spill (the hub rows' edges past the ELL
+  # width): SSSP at Q = 1 under two frontiers and at Q = 8 (a served query
+  # tile), PageRank's add beside torch.sparse.mm over the spill as CSR.
+  sp = g.spill
+  if sp is not None:
+    from repro_torch.core.vertex_program import GraphProgram
+    sssp_prog = GraphProgram(process_op="msg_plus_edge", reduce_kind="min")
+    rank_prog = GraphProgram(process_op="msg", reduce_kind="add")
+    m1 = torch.rand((n,), generator=gen, device="cuda") * 10
+    m8 = torch.rand((n, 8), generator=gen, device="cuda") * 10
+    rows = [(f"sssp,f32,min,Q={m.shape[1] if m.ndim == 2 else 1},{f}", m, f)
+            for m in (m1, m8) for f in ("all", "10%")]
+    for label, m, f in rows:
+      entry, records[f"coo:{label}"] = time_coo(
+          "phase 4", f"coo_spmv[{label},spill]", sp, m, frontiers[f], m,
+          sssp_prog, coo_launches,
+          library_null="no single PyTorch call takes a min over edges")
+      entries.append(entry)
+    real = sp.emask
+    csr_spill = torch.sparse_coo_tensor(
+        torch.stack([sp.dst[real], sp.src[real]]),
+        torch.ones(int(real.sum()), device="cuda"), (n, n)).coalesce(
+        ).to_sparse_csr()
+    col = m1[:, None].contiguous()
+    entry, records["coo:pagerank,f32,add,Q=1,all"] = time_coo(
+        "phase 4", "coo_spmv[pagerank,f32,add,Q=1,all,spill]", sp, m1,
+        active, m1, rank_prog, coo_launches,
+        library=lambda: torch.sparse.mm(csr_spill, col))
+    entries.append(entry)
+    del csr_spill, col, m1, m8
   return entries, records, split, by_frontier
 
 
@@ -2106,11 +2322,13 @@ def cf_on_kernel(users, items, ratings, g2u, g2i, p0, gamma: float,
   ``CF_KERNEL_SWEEPS`` sweeps held to the port's ``collaborative_filtering``
   through ``Plan("coo")`` from the same ``p0`` within ``CF_TOL`` times the
   largest change the sweeps made; a sweep's host-clock seconds both ways;
-  the kernel's row of the kernels line on the first sweep's phase-U call.
+  the kernel's row of the kernels line on the first sweep's phase-U call,
+  and the COO kernel's on phase V's.
   """
   import numpy as np
   import torch
   from repro_torch.algos import collaborative_filtering
+  from repro_torch.kernels import coo_spmv as coo_mod
   from repro_torch.core.backends import Plan, Planner
   from repro_torch.core.engine import run_fixed_iters
   from repro_torch.core.graph import build_ell
@@ -2143,11 +2361,18 @@ def cf_on_kernel(users, items, ratings, g2u, g2i, p0, gamma: float,
                                    backend=coo)
 
   ell_mod.launches.reset()
+  coo_mod.launches.reset()
+  coo_mod.torch_path.update(dict.fromkeys(coo_mod.torch_path, 0))
   p_k = sweeps(CF_KERNEL_SWEEPS)
   torch.cuda.synchronize()
   launches = dict(ell_mod.launches.by_config)
+  coo_launches = dict(coo_mod.launches.by_config)
+  coo_torch_path = dict(coo_mod.torch_path)
   if ell_mod.launches.total == 0:
     raise AssertionError("phase 5: CF on cuda_ell never launched the kernel")
+  if coo_mod.launches.total == 0:
+    raise AssertionError("phase 5: CF's phase V never launched the COO "
+                         "kernel")
   p_c = plain(CF_KERNEL_SWEEPS)
   if not bool(torch.isfinite(p_k).all()):
     raise AssertionError("phase 5: CF on cuda_ell: non-finite factors")
@@ -2159,7 +2384,9 @@ def cf_on_kernel(users, items, ratings, g2u, g2i, p0, gamma: float,
       f"size: item-to-user ELL width {g2u_ell.width}, {spilled:,} of "
       f"{len(users):,} ratings spilled (built in {t_build:.1f} s); phase U "
       f"through cuda_ell, phase V through {plan_name(v_plan)}; kernel "
-      f"launches {launches}; {CF_KERNEL_SWEEPS} sweeps: max|cuda_ell - "
+      f"launches {launches}, COO kernel launches {coo_launches}, CUDA calls "
+      f"on the PyTorch path {coo_torch_path}; {CF_KERNEL_SWEEPS} sweeps: "
+      f"max|cuda_ell - "
       f"coo| {err:.3g} (max change {change:.3g}); a sweep {sweep_s:.3f} s "
       f"against {sweep_coo_s:.3f} s through coo (host clock)")
   if not err <= CF_TOL * change:
@@ -2167,6 +2394,7 @@ def cf_on_kernel(users, items, ratings, g2u, g2i, p0, gamma: float,
                          f"{CF_TOL} x {change:.3g})")
   record = {"width": g2u_ell.width, "spilled": spilled, "build_s": t_build,
             "phase_v_plan": plan_name(v_plan), "launches": launches,
+            "coo_launches": coo_launches, "coo_torch_path": coo_torch_path,
             "sweeps": CF_KERNEL_SWEEPS, "max_abs_err": err,
             "max_change": change, "sweep_s": sweep_s,
             "sweep_coo_s": sweep_coo_s}
@@ -2183,14 +2411,22 @@ def cf_on_kernel(users, items, ratings, g2u, g2i, p0, gamma: float,
       "edges")
   del g2u_ell, dprop
   torch.cuda.empty_cache()
-  return record, entry
+  # Phase V's call: the COO kernel's lane-mixing instance on the
+  # user-to-item graph, every source active.
+  coo_entry, record["coo_row"] = time_coo(
+      "phase 5", f"coo_spmv[cf_one_leaf,f32,add,K={CF_K},netflix,traced]",
+      g2i, p0, every, p0, prog, coo_launches,
+      tiled=v_plan.backend == "coo_tiled",
+      library_null="no single PyTorch call sums (e - m.d) m over a run's "
+      "edges")
+  return record, [entry, coo_entry]
 
 
 def phase_suite_tc_cf(ell_mod, ref_mod, seed: int = 11) -> tuple:
   """Triangle counting and collaborative filtering, GraphMat against the
   native baselines and an independent check each; then CF with the
   one-leaf process on the kernel (:func:`cf_on_kernel`).  Returns the
-  record and the kernels line's CF row."""
+  record and the kernels line's CF rows."""
   import numpy as np
   import torch
   from repro_torch.algos import collaborative_filtering, triangle_count
@@ -2319,9 +2555,10 @@ def phase_suite_tc_cf(ell_mod, ref_mod, seed: int = 11) -> tuple:
   out["cf"]["native_profile"] = device_busy(nat)
   log(busy_line("phase 5: CF GraphMat", out["cf"]["profile"]))
   log(busy_line("phase 5: CF native", out["cf"]["native_profile"]))
-  out["cf_kernel"], entry = cf_on_kernel(users, items, ratings, g2u, g2i, p0,
-                                         gamma, ell_mod, ref_mod)
-  return out, entry
+  out["cf_kernel"], cf_entries = cf_on_kernel(users, items, ratings, g2u,
+                                              g2i, p0, gamma, ell_mod,
+                                              ref_mod)
+  return out, cf_entries
 
 
 def table3(suite: dict) -> dict:
@@ -5189,14 +5426,14 @@ def main(argv=None) -> int:
   mark("phase 3")
   entries, ell_rows, split, by_frontier = phase_timing(
       g, ell_mod, ref_mod, slice_stats["launches"], recorded,
-      slice_stats["traced_launches"])
+      slice_stats["traced_launches"], slice_stats["coo_launches"])
   mark("phase 4")
   suite = phase_suite_graph(g, edges, ell_mod)
   dist_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_2d_")
   prep = prepare_2d(edges, g.n, pathlib.Path(dist_tmp.name))
   del g, recorded, edges  # the graph phases' tensors, before TC's bitmaps
   torch.cuda.empty_cache()
-  tc_cf, cf_entry = phase_suite_tc_cf(ell_mod, ref_mod)
+  tc_cf, cf_entries = phase_suite_tc_cf(ell_mod, ref_mod)
   suite.update(tc_cf)
   suite["table3"] = t3 = table3(suite)
   log("phase 5: Table 3 on the card, graphmat/native: " + ", ".join(
@@ -5287,7 +5524,7 @@ def main(argv=None) -> int:
   finally:
     stop_dryrun_child(child)
   torch.cuda.empty_cache()
-  entries.append(cf_entry)
+  entries += cf_entries
   examples, road_entries = phase_examples(args.scale, ell_mod, ref_mod)
   mark("phase 14")
   entries += road_entries

@@ -14,10 +14,14 @@ Backends:
   * ``spmv_coo_tiled`` — the same, one equal-size edge tile at a time
                          (scatter-fast monoids only).
   * ``spmv_ell``       — degree-sorted ELL rows: gather + axis-1 reduce, hub
-                         spill edges folded in through ``spmv_coo``.
+                         spill edges folded in through the COO path.
 
 The hand-written CUDA kernel for the ELL rows is reached through the
-``cuda_ell`` backend (:mod:`repro_torch.kernels.ops`).
+``cuda_ell`` backend (:mod:`repro_torch.kernels.ops`).  On CUDA tensors the
+COO calls (``spmv_coo``, ``spmv_coo_tiled``, the spill merge) run the
+hand-written segmented-reduction kernel wherever
+:func:`repro_torch.kernels.coo_spmv.route` takes them; the gather and
+scatter chain here is its plain version, and runs every other call.
 
 Reductions: add/min/max/any/all run as scatter (COO) or axis (dense, ELL)
 fast paths.  The ``generic`` reduce (an arbitrary monoid given as a pytree
@@ -244,6 +248,19 @@ def spmv_coo(g: graphlib.CooGraph, msg: PyTree, active: torch.Tensor,
              dst_prop: PyTree, program: GraphProgram,
              with_recv: bool = True
              ) -> Tuple[PyTree, Optional[torch.Tensor]]:
+  from repro_torch.kernels import coo_spmv  # lazy: kernels import core
+  call = coo_spmv.route(g, msg, active, dst_prop, program)
+  if call is not None:
+    return coo_spmv.spmv(call, g, active, with_recv)
+  return _spmv_coo_torch(g, msg, active, dst_prop, program, with_recv)
+
+
+def _spmv_coo_torch(g: graphlib.CooGraph, msg: PyTree, active: torch.Tensor,
+                    dst_prop: PyTree, program: GraphProgram,
+                    with_recv: bool = True
+                    ) -> Tuple[PyTree, Optional[torch.Tensor]]:
+  """:func:`spmv_coo` in PyTorch: the gather, the process over the edges,
+  the scatter (the kernel's plain version)."""
   r, valid, dst = _coo_process(g, 0, g.capacity, msg, active, dst_prop,
                                program)
   if program.reduce_kind in _SCATTER_FAST:
@@ -282,13 +299,32 @@ def spmv_coo_tiled(g: graphlib.CooGraph, msg: PyTree, active: torch.Tensor,
   with the monoid's scatter.
 
   For min/max/any/all the result is bitwise equal to :func:`spmv_coo`.  For
-  add the sums may differ in the last bits: CUDA scatters add with atomics
-  in no fixed order.
+  add the sums may differ in the last bits on the PyTorch path: CUDA
+  scatters add with atomics in no fixed order.  A call that the COO kernel
+  takes (:func:`repro_torch.kernels.coo_spmv.route`) runs as
+  :func:`spmv_coo` does, whose tiles are the kernel's own: ``num_tiles``
+  then does not change the result, and add sums equal :func:`spmv_coo`'s
+  bit for bit.
   """
   if program.reduce_kind not in _SCATTER_FAST:
     raise ValueError(
         f"spmv_coo_tiled requires a scatter-fast reduce, got "
         f"{program.reduce_kind!r}")
+  from repro_torch.kernels import coo_spmv  # lazy: kernels import core
+  call = coo_spmv.route(g, msg, active, dst_prop, program)
+  if call is not None:
+    return coo_spmv.spmv(call, g, active, with_recv)
+  return _spmv_coo_tiled_torch(g, msg, active, dst_prop, program, num_tiles,
+                               with_recv)
+
+
+def _spmv_coo_tiled_torch(g: graphlib.CooGraph, msg: PyTree,
+                          active: torch.Tensor, dst_prop: PyTree,
+                          program: GraphProgram, num_tiles: Optional[int],
+                          with_recv: bool
+                          ) -> Tuple[PyTree, Optional[torch.Tensor]]:
+  """:func:`spmv_coo_tiled` in PyTorch, tile by tile (the kernel's plain
+  version)."""
   cap = g.capacity
   t = int(num_tiles) if num_tiles else default_num_tiles(cap)
   t = max(1, min(t, cap))
@@ -348,12 +384,22 @@ def _unpermute(g: graphlib.EllGraph, y_packed: PyTree,
 
 def merge_spill(g: graphlib.EllGraph, y: PyTree, recv: torch.Tensor,
                 msg: PyTree, active: torch.Tensor, dst_prop: PyTree,
-                program: GraphProgram) -> Tuple[PyTree, torch.Tensor]:
-  """Fold the hub rows' spilled edges into the ELL result through COO."""
+                program: GraphProgram, process=None
+                ) -> Tuple[PyTree, torch.Tensor]:
+  """Fold the hub rows' spilled edges into the ELL result through COO.
+
+  Where the COO kernel takes the call, it folds the spilled runs into
+  ``y`` and ``recv`` in place (the ELL paths pass tensors of their own).
+  ``process``: the process the caller resolved for the ELL rows
+  (``process_expr.for_program``'s answer), not resolved again."""
   if g.spill is None:
     return y, recv
+  from repro_torch.kernels import coo_spmv  # lazy: kernels import core
   with tracing.span(tracing.SPILL):
-    y_s, recv_s = spmv_coo(g.spill, msg, active, dst_prop, program)
+    call = coo_spmv.route(g.spill, msg, active, dst_prop, program, process)
+    if call is not None:
+      return coo_spmv.merge(call, g.spill, active, y, recv)
+    y_s, recv_s = _spmv_coo_torch(g.spill, msg, active, dst_prop, program)
     red = program.reduce_fn()
     y = _tree_where(recv_s, _tree_where(recv, red(y, y_s), y_s), y)
     return y, recv | recv_s

@@ -187,6 +187,15 @@ _generated_lock = threading.Lock()
 
 def generated_source(process: ProcessExpr, reduce_kind: str) -> str:
   """The CUDA source of ``process``'s instance for ``reduce_kind``."""
+  return _GENERATED_SOURCE.format(**instance_fields(process, reduce_kind))
+
+
+def instance_fields(process: ProcessExpr, reduce_kind: str) -> Dict[str, str]:
+  """What a generated source says of ``process``'s instance for
+  ``reduce_kind`` (this kernel's, and the COO kernel's in
+  :mod:`repro_torch.kernels.coo_spmv`): ``what`` it takes, the ``functor``,
+  the C entry's ``checks`` of its dtypes and widths, the ``Operands``
+  ``types``, the ``reduce_code`` and the ``lanes`` template argument."""
   m = process.dtype
   e, d = process.edge_dtype or m, process.dst_dtype or m
   r = process.out_dtype
@@ -204,11 +213,11 @@ def generated_source(process: ProcessExpr, reduce_kind: str) -> str:
           " x ".join(KINDS[t] for t in (m, e, d)) + f" -> {KINDS[r]}")
   if process.lane_mixing:
     what += f", K = {process.lanes} lanes mixed, K_out = {process.k_out}"
-  return _GENERATED_SOURCE.format(
+  return dict(
       what=what, reduce=reduce_kind, functor=process.functor_source(),
       checks=" ||\n      ".join(checks),
       types=", ".join(CTYPES[KINDS[t]] for t in (m, e, d, r)) + f", {acc}",
-      reduce_code=_REDUCE_CODE[reduce_kind],
+      reduce_code=str(_REDUCE_CODE[reduce_kind]),
       lanes=", true" if process.lane_mixing else "")
 
 
@@ -387,14 +396,15 @@ def _reads(process: Union[str, ProcessExpr]) -> Tuple[bool, bool]:
 
 def takes(msg: torch.Tensor, vals: torch.Tensor,
           process: Union[str, ProcessExpr], reduce_kind: str,
-          dprop: Optional[torch.Tensor] = None) -> bool:
+          dprop: Optional[torch.Tensor] = None,
+          rows: Optional[int] = None) -> bool:
   """Whether the kernel takes messages ``msg`` ([n] or [n, Q]) with this
   process and reduce.  A form name takes one shipped dtype for the
   message, the edge values it reads and the destination property; a
   traced process takes the dtypes and widths it was traced at.  A process
   that reads the destination property needs ``dprop`` shaped as ``msg`` is:
   [n] with [n], [n, 1] or [n, Q] with [n, Q] (a lane-mixing one: the width
-  it was traced at)."""
+  it was traced at), with ``rows`` rows (default: the message's)."""
   if reduce_kind not in _REDUCE_CODE or msg.ndim > 2:
     return False
   reads_edge, reads_dst = _reads(process)
@@ -417,7 +427,8 @@ def takes(msg: torch.Tensor, vals: torch.Tensor,
   widths = ((process.dst_lanes,) if isinstance(process, ProcessExpr)
             and process.lane_mixing else (1, q))
   return (dprop is not None and dprop.dtype == dst_dtype
-          and dprop.ndim == msg.ndim and dprop.shape[0] == msg.shape[0]
+          and dprop.ndim == msg.ndim
+          and dprop.shape[0] == (msg.shape[0] if rows is None else rows)
           and (dprop.ndim == 1 or dprop.shape[1] in widths))
 
 

@@ -89,4 +89,4 @@ def spmv_ell_cuda(g: graphlib.EllGraph, msg: PyTree, active: torch.Tensor,
   y_packed = _tree.tree_unflatten(treedef,
                                   [y2[:, 0] if scalar_result else y2])
   y, recv = _unpermute(g, y_packed, recv_i8 != 0)
-  return merge_spill(g, y, recv, msg, active, dst_prop, program)
+  return merge_spill(g, y, recv, msg, active, dst_prop, program, process)
