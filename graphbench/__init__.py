@@ -11,7 +11,15 @@ traffic mix (``traffic/<mix>.json``, parameters that :mod:`graphbench.drive`
 reads: how work arrives, and which kinds of work, each a module
 ``work/<name>.py`` that runs it on the port and judges it); its correctness
 limits are ``limits/<cell>.json``; a per-layer metric is read by
-``metrics/<metric>.py``.  :mod:`graphbench.port` is the
-one module that imports the system under test; :mod:`graphbench.reference`
-is the plain reference, which imports nothing of it.
+``metrics/<metric>.py``.  A configuration's ``container`` names the port's
+state and entries it runs on: ``graph`` and ``ratings`` are
+:mod:`graphbench.port`'s, any other is ``containers/<container>.py``'s
+``Container(config, data, device)``.  Those modules are the only ones that
+import the system under test; :mod:`graphbench.reference` is the plain
+reference, which imports nothing of it.
+
+So a new configuration is new files alone: its config file, a generator
+(``gen/<generator>.py``) where none fits, its container, its kinds of work
+(``work/<name>.py``), its reference (``reference/``), its limits, its
+readers, and its entries in ``BENCHMARK.json``.
 """

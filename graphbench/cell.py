@@ -14,6 +14,7 @@ run without one.
 from __future__ import annotations
 
 import gc
+import importlib
 import sys
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -37,11 +38,19 @@ def _sync(device: torch.device) -> None:
     torch.cuda.synchronize(device)
 
 
+def container(name: str) -> type:
+  """The port's container ``name``: ``port.CONTAINERS``'s, else the
+  ``Container`` of ``graphbench/containers/<name>.py``."""
+  from graphbench import port as port_mod
+  if name in port_mod.CONTAINERS:
+    return port_mod.CONTAINERS[name]
+  return importlib.import_module(f"graphbench.containers.{name}").Container
+
+
 def make_port(cell: dict, data: dict, device):
   """The port's container that the configuration names, over its inputs."""
-  from graphbench import port as port_mod
   config = cell["config"]
-  return port_mod.CONTAINERS[config["container"]](config, data, device)
+  return container(config["container"])(config, data, device)
 
 
 def run(name: str, seed: int, seconds: float, trace_on: bool, *,

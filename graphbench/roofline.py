@@ -59,5 +59,14 @@ def cf_sweep_bytes(data: Dict[str, object], k: int) -> int:
           + spmv_bytes(e, users, items, **one))
 
 
+def tc_bytes(dag: Dict[str, torch.Tensor], n: int) -> int:
+  """One triangle count by merging out-lists, whatever implements it: for
+  each DAG edge ``u -> v``, ``u``'s and ``v``'s out-lists read once (an
+  index an entry) and each list's two offsets."""
+  out_deg = torch.bincount(dag["src"], minlength=n)
+  entries = int(out_deg[dag["src"]].sum()) + int(out_deg[dag["dst"]].sum())
+  return INDEX * (entries + 4 * dag["src"].numel())
+
+
 def share_percent(nbytes: float, seconds: float) -> float:
   return 100.0 * nbytes / H100_BYTES_PER_S / seconds

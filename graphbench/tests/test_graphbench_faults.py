@@ -5,8 +5,9 @@ program's place) and every fault a cell can have are not.
 The faults, planted in the port underneath the timed path: a superstep
 that returns its state unchanged; half of the batch left out with the
 mean taken over the rest (the server's slots; CF's ratings); an answer
-altered where it is produced.  No cell spans chips, so none can lose an
-exchange between them; PageRank and a single traversal have no batch.
+altered where it is produced (a triangle count too).  No cell spans chips,
+so none can lose an exchange between them; PageRank, a single traversal
+and a triangle count have no batch.
 """
 
 import subprocess
@@ -19,8 +20,11 @@ from graphbench import cell as cell_mod
 from graphbench import manifest
 from graphbench.tests.conftest import ROOT
 
+# Triangle counting at scale 12: the float16 control needs a vertex with
+# more than 2,048 triangles to round.
 SMALL = {"graph500-s20": {"scale": 9},
-         "netflix-cf": {"users": 1500, "items": 200, "ratings": 24000}}
+         "netflix-cf": {"users": 1500, "items": 200, "ratings": 24000},
+         "gap-kron-s16": {"scale": 12}}
 # CF jobs of one sweep, so that a window on however loaded a CPU finishes
 # one (it ends at the first sweep's end after its seconds).
 SMALL_TRAFFIC = {"sweeps": 1}
@@ -121,7 +125,8 @@ def test_altered_answer_is_not_correct(name, monkeypatch):
   monkeypatch.setattr(SsspFamily, "extract",
                       lambda self, col: _alter(real_extract(self, col)).numpy())
   for cls, meth in ((port.GraphPort, "sssp"), (port.GraphPort, "pagerank"),
-                    (port.RatingsPort, "sweep")):
+                    (port.RatingsPort, "sweep"),
+                    (cell_mod.container("triangles"), "count")):
     real = getattr(cls, meth)
     monkeypatch.setattr(cls, meth, lambda self, *a, _r=real, **kw: _alter(
         _r(self, *a, **kw)))

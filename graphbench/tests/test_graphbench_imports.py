@@ -1,6 +1,7 @@
 """No module of the benchmark imports JAX or the JAX package, compared by
-whole top-level name (``repro_torch`` passes, ``repro`` does not), and the
-plain reference imports nothing of the port."""
+whole top-level name (``repro_torch`` passes, ``repro`` does not), the
+plain reference imports nothing of the port, and only ``port.py`` and the
+containers import the port."""
 
 import ast
 import pathlib
@@ -36,8 +37,14 @@ def test_reference_imports_no_port(path):
 
 
 def test_only_port_imports_the_program():
-  importers = {p.name for p in SOURCES if "repro_torch" in set(top_names(p))}
-  assert importers == {"port.py"}
+  """``port.py`` and the containers under ``containers/``, and nothing
+  else of the benchmark."""
+  here = ROOT / "graphbench"
+  importers = {p.relative_to(here) for p in SOURCES
+               if "repro_torch" in set(top_names(p))}
+  containers = {p for p in importers if p.parts[0] == "containers"}
+  assert importers - containers == {pathlib.Path("port.py")}
+  assert pathlib.Path("containers", "triangles.py") in containers
 
 
 def test_whole_name_rule(tmp_path):

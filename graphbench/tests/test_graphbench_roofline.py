@@ -40,6 +40,14 @@ def test_cf_sweep_bytes():
   assert roofline.cf_sweep_bytes(d, 4) == one_u + one_v
 
 
+def test_tc_bytes():
+  # DAG 0->1, 0->2, 1->2, 2->3: out-degrees 2, 1, 1, 0.
+  dag = {"src": torch.tensor([0, 0, 1, 2]), "dst": torch.tensor([1, 2, 2, 3])}
+  # Edge by edge, out(u) + out(v) entries: 2+1, 2+1, 1+1, 1+0; each edge
+  # reads two lists' two offsets.
+  assert roofline.tc_bytes(dag, 4) == 4 * (3 + 3 + 2 + 1) + 4 * 4 * 4
+
+
 def test_share_percent():
   assert roofline.share_percent(H100_BYTES_PER_S, 1.0) == 100.0
   assert roofline.share_percent(H100_BYTES_PER_S, 4.0) == 25.0
