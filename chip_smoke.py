@@ -57,7 +57,14 @@ Phases, in order; any failure exits non-zero before the result line:
    10% of sources active and at Q = 8, PageRank's add in turns with
    ``torch.sparse.mm``), each held against ``_spmv_coo_torch`` on the same
    tensors (min bitwise, add within ``COO_ADD_TOL``) beside its byte bound
-   and its message gathers' floor (``tools/gather_floor.cu``);
+   and its message gathers' floor (``tools/gather_floor.cu``); then one
+   betweenness-centrality trial of 4 sources through ``Plan("cuda_ell")``
+   against ``Plan("ell")`` (depths and float64 path counts bitwise), its
+   float64 launches counted, and its sums' rows at Q = 4, every and 10% of
+   sources active, on both kernels: the float64 pass-through over
+   whole-number messages above 2**24 (bitwise against the plain versions
+   and ``torch.sparse.mm`` in float64) and the float32 ``msg``
+   (``bc_rows``);
 5. the paper's five algorithms and its Table 3: PageRank (20 sweeps), BFS
    and SSSP through ``Plan("cuda_ell")`` on the phase-3 graph against the
    native baselines on its edges (BFS and SSSP bitwise, PageRank at rtol
@@ -1728,9 +1735,15 @@ def time_ell(phase: str, g, ell_mod, ref_mod, gen, csr: dict, name: str,
       csr[scale, dtype] = None
       scale = None
   if scale is not None:
-    rtol = 1e-4 if dtype == torch.float32 else RTOL[str(dtype)]
-    torch.testing.assert_close(y_lib.float(), y.float(), rtol=rtol,
-                               atol=rtol * float(y.float().abs().max()))
+    if dtype == torch.float64:
+      # Whole-number float64 sums (betweenness centrality's path counts)
+      # are exact in any order.
+      if not torch.equal(y_lib, y):
+        raise AssertionError(f"{name}: torch.sparse.mm differs")
+    else:
+      rtol = 1e-4 if dtype == torch.float32 else RTOL[str(dtype)]
+      torch.testing.assert_close(y_lib.float(), y.float(), rtol=rtol,
+                                 atol=rtol * float(y.float().abs().max()))
     # Timed in turns with the kernel, so that both see the same card.
     kernel_ms, library_ms = paired_ms(
         run_all(kernel), lambda: torch.sparse.mm(csr[scale, dtype], x))
@@ -1916,13 +1929,14 @@ def gather_floor_ms(ids, n_src: int, vecs: int) -> dict:
 
 def time_coo(phase: str, name: str, g, msg, active, dprop, prog,
              launches: dict, tiled: bool = False, library=None,
-             library_null=None):
+             library_null=None, exact: bool = False):
   """One row of the kernels line: the COO kernel (``kernels/coo_spmv.py``)
   on COO graph ``g`` for one call, held against its plain version on the
   same card tensors (``core/spmv.py::_spmv_coo_torch``, or
   ``_spmv_coo_tiled_torch`` where ``tiled``, the plan CF's phase V takes):
   recv, min and max bitwise, add within :data:`COO_ADD_TOL` of each
-  destination's sum of |terms|.  Timed with CUDA events (in turns with
+  destination's sum of |terms| (bitwise where ``exact``, and against
+  ``library`` too: whole-number float64 sums).  Timed with CUDA events (in turns with
   ``library``, a call computing the same, where given), and on the card by
   :func:`launch_busy` over its own kernels (the frontier pass, the reduce,
   the carry pass where a run crosses tiles).  The bound is the bytes the
@@ -1951,7 +1965,7 @@ def time_coo(phase: str, name: str, g, msg, active, dprop, prog,
   (y, recv), (y_t, recv_t) = kernel(), plain()
   if not torch.equal(recv, recv_t):
     raise AssertionError(f"{phase}: {name}: recv differs")
-  if prog.reduce_kind == "add":
+  if prog.reduce_kind == "add" and not exact:
     r, _, dst = S._coo_process(g, 0, g.capacity, msg, active, dprop, prog)
     size = torch.zeros_like(y_t).index_add_(0, dst, r.abs())
     del r, dst
@@ -1977,6 +1991,8 @@ def time_coo(phase: str, name: str, g, msg, active, dprop, prog,
   if library is not None:
     y_lib = library()
     torch.cuda.synchronize()
+    if exact and not torch.equal(y_lib.reshape(y.shape), y):
+      raise AssertionError(f"{phase}: {name}: the library differs")
     torch.testing.assert_close(y_lib.reshape(y.shape), y, rtol=1e-4,
                                atol=1e-4 * float(y.abs().max()))
     del y_lib
@@ -2035,6 +2051,130 @@ def time_coo(phase: str, name: str, g, msg, active, dprop, prog,
       + ("" if library_null is None else f" ({library_null})"))
   torch.cuda.empty_cache()
   return entry, record
+
+
+# Betweenness centrality (``algos/bc.py``): the sources of one GAP trial,
+# and the benchmark cell's limit on the normalized scores, which holds the
+# kernel path's scores to the plain path's.
+BC_LANES = 4
+BC_SCORE_GAP = json.loads((ROOT / "graphbench" / "limits"
+                           / "gap-kron-s20.bc.json").read_text())["score_gap"]
+
+
+def bc_rows(phase: str, g, ell_mod, ref_mod, gen, frontiers: dict) -> tuple:
+  """Betweenness centrality's sums on graph ``g``: one GAP trial of
+  :data:`BC_LANES` sources through ``Plan("cuda_ell")`` against
+  ``Plan("ell")`` (depths and float64 path counts bitwise, the normalized
+  scores within :data:`BC_SCORE_GAP`), the ELL and COO kernels' launches
+  counted over it, none of its COO calls left on the PyTorch path; then the
+  kernels line's rows at Q = 4 with every and 10% of sources active: the
+  forward pass's float64 path counts through the pass-through ``m`` (a
+  generated instance) and the backward pass's float32 shares through the
+  shipped ``msg``, on the ELL kernel and on the COO kernel over the spill,
+  each beside ``torch.sparse.mm`` in the message's dtype over the active
+  sources' messages.  The path counts are whole numbers in [2**24, 2**25),
+  above what float32 holds exactly, whose sums are exact in float64 in any
+  order: held bitwise against the plain versions and the library."""
+  import torch
+  from repro_torch.algos import bc
+  from repro_torch.core.backends import Plan
+  from repro_torch.core.vertex_program import GraphProgram
+  from repro_torch.kernels import coo_spmv as coo_mod
+  from repro_torch.kernels import process_expr
+  n = g.n
+  named = torch.zeros((n,), dtype=torch.bool, device="cuda")
+  named[g.cols[g.mask].long()] = True
+  if g.spill is not None:
+    named[g.spill.src[g.spill.emask].long()] = True
+  pool = named.nonzero().view(-1)
+  sources = pool[torch.randperm(pool.numel(), generator=gen, device="cuda")
+                 [:BC_LANES]]
+
+  ell_mod.launches.reset()
+  coo_mod.launches.reset()
+  coo_mod.torch_path.update(dict.fromkeys(coo_mod.torch_path, 0))
+  run = {}
+  for plan in ("cuda_ell", "ell"):
+    depth, sigma, deepest = bc.forward(g, sources, n, backend=Plan(plan))
+    delta = bc.backward(g, depth, sigma, deepest, backend=Plan(plan))
+    run[plan] = (depth, sigma, deepest, bc.normalized(delta))
+    if plan == "cuda_ell":
+      torch.cuda.synchronize()
+      launches = dict(ell_mod.launches.by_config)
+      coo_launches = dict(coo_mod.launches.by_config)
+      torch_path = dict(coo_mod.torch_path)
+  (d_k, s_k, deep_k, sc_k), (d_p, s_p, deep_p, sc_p) = (run["cuda_ell"],
+                                                        run["ell"])
+  score_gap = float((sc_k - sc_p).abs().max())
+  if deep_k != deep_p or not torch.equal(d_k, d_p):
+    raise AssertionError(f"{phase}: BC depths: cuda_ell != ell")
+  if not torch.equal(s_k, s_p):
+    raise AssertionError(f"{phase}: BC path counts: cuda_ell != ell")
+  if not score_gap <= BC_SCORE_GAP:
+    raise AssertionError(f"{phase}: BC scores: cuda_ell - ell reaches "
+                         f"{score_gap:.3g} (> {BC_SCORE_GAP})")
+  f64_ell = [k for k in launches if k.startswith("qtiled/float64/add/")]
+  f64_coo = [k for k in coo_launches if "/float64/add/" in k]
+  if not f64_ell or (g.spill is not None and not f64_coo):
+    raise AssertionError(f"{phase}: BC launched no float64 instance: ELL "
+                         f"{launches}, COO {coo_launches}")
+  if any(torch_path.values()):
+    raise AssertionError(f"{phase}: BC left COO calls on the PyTorch path: "
+                         f"{torch_path}")
+  stats = {"sources": sources.tolist(), "deepest": deep_k,
+           "sigma_max": float(s_k.max()), "score_gap": score_gap,
+           "launches": launches, "coo_launches": coo_launches}
+  log(f"{phase}: BC from {stats['sources']}: cuda_ell == ell (depths and "
+      f"path counts bitwise, scores within {score_gap:.3g}), deepest level "
+      f"{deep_k}, largest path count {stats['sigma_max']:.0f}, ELL launches "
+      f"{launches}, COO launches {coo_launches}")
+  del run, d_k, s_k, sc_k, d_p, s_p, sc_p, delta, depth, sigma
+
+  counts = torch.randint(2**24, 2**25, (n, BC_LANES), generator=gen,
+                         device="cuda", dtype=torch.int64).double()
+  shares = torch.rand((n, BC_LANES), generator=gen, device="cuda")
+  m_f64 = process_expr.trace(lambda m, e, d: m, torch.float64, lane=True,
+                             k=BC_LANES, edge_dtype=g.vals.dtype,
+                             reads_dst=False)
+  if (not isinstance(m_f64, process_expr.ProcessExpr) or m_f64.shipped
+      or m_f64.lane_mixing):
+    raise AssertionError(f"{phase}: the float64 pass-through: {m_f64}")
+  tiled = "src/repro/kernels/ell_spmv.py:165"
+  entries, records = [], {}
+  for what, op, m in (("bc_sigma,f64", m_f64, counts),
+                      ("bc_delta,f32", "msg", shares)):
+    for f in ("all", "10%"):
+      name = f"ell_spmv[{what},add,Q={BC_LANES},{f}]"
+      entry, records[name] = time_ell(
+          phase, g, ell_mod, ref_mod, gen, {}, name, op, "add", m.dtype,
+          BC_LANES, None, tiled, [(m, frontiers[f])], launches,
+          library_scale=1.0, exact=m.dtype == torch.float64)
+      entries.append(entry)
+  sp = g.spill
+  if sp is not None:
+    add = GraphProgram(process_op="msg", reduce_kind="add")
+    real = sp.emask
+    pattern = torch.sparse_coo_tensor(
+        torch.stack([sp.dst[real], sp.src[real]]),
+        torch.ones(int(real.sum()), device="cuda", dtype=torch.float64),
+        (n, n)).coalesce().to_sparse_csr()
+    for what, m in (("bc_sigma,f64", counts), ("bc_delta,f32", shares)):
+      mat = torch.sparse_csr_tensor(
+          pattern.crow_indices(), pattern.col_indices(),
+          pattern.values().to(m.dtype), pattern.shape)
+      for f in ("all", "10%"):
+        x = torch.where(frontiers[f][:, None], m, 0.0)
+        name = f"coo_spmv[{what},add,Q={BC_LANES},{f},spill]"
+        entry, records[f"coo:{what},add,Q={BC_LANES},{f}"] = time_coo(
+            phase, name, sp, m, frontiers[f], m, add, coo_launches,
+            library=lambda: torch.sparse.mm(mat, x),
+            exact=m.dtype == torch.float64)
+        entries.append(entry)
+      del mat, x
+    del pattern
+  del counts, shares
+  torch.cuda.empty_cache()
+  return entries, records, stats
 
 
 def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict,
@@ -2168,6 +2308,10 @@ def phase_timing(g, ell_mod, ref_mod, launches: dict, recorded: dict,
         library=lambda: torch.sparse.mm(csr_spill, col))
     entries.append(entry)
     del csr_spill, col, m1, m8
+  bc_entries, bc_records, records["bc_trial"] = bc_rows(
+      "phase 4", g, ell_mod, ref_mod, gen, frontiers)
+  entries += bc_entries
+  records.update(bc_records)
   return entries, records, split, by_frontier
 
 

@@ -1,7 +1,9 @@
 """The GraphMat superstep engine (port of :mod:`repro.core.engine`).
 
 SEND_MESSAGE over the active set -> generalized SpMV -> APPLY -> next
-active set = vertices whose property changed.
+active set = vertices whose property changed.  :func:`run_level_sweep`
+runs a batched program once a stored BFS level instead, from the deepest
+up (Brandes' backward pass).
 
 The reference runs the loop as one ``jax.lax.while_loop``.  Here
 :func:`run_graph_program` is a host loop whose ``num_active > 0`` check
@@ -218,3 +220,34 @@ def run_batched_rounds(graph, program: GraphProgram,
     trace[t] = torch.where(any_live, state.num_active.sum(dtype=torch.int32),
                            -1)
   return state, trace
+
+
+def run_level_sweep(graph, program: GraphProgram, prop: PyTree,
+                    depth: torch.Tensor, deepest: int,
+                    backend: PlanLike = AUTO_PLAN) -> PyTree:
+  """Sweep the stored BFS levels of Q batched queries from the deepest up:
+  one batched superstep a level ``d = deepest, ..., 1``, whose frontier is,
+  lane by lane, the vertices with ``depth == d`` (``depth`` int32 ``[n,
+  Q]``, -1 where unreached), and whose result lands one level up: the new
+  property is kept where ``depth == d - 1`` and the old one elsewhere
+  (Brandes' dependencies flow from a level to its predecessors).  No host
+  read inside the sweep; ``deepest`` is the host's.  The program needs an
+  ``inert_message``; its ``activate`` decides nothing here.  Each level is
+  the profiler span ``graphmat.engine.level``."""
+  plan = as_plan(backend)
+  q = depth.shape[1]
+  dev = depth.device
+  # Every lane live at every level: its frontier alone says what it sends.
+  live = BatchedEngineState(
+      prop=prop, active=None,
+      iteration=torch.zeros((), dtype=torch.int32, device=dev),
+      done=torch.zeros((q,), dtype=torch.bool, device=dev),
+      num_active=torch.zeros((q,), dtype=torch.int32, device=dev),
+      iters=torch.zeros((q,), dtype=torch.int32, device=dev))
+  for d in range(int(deepest), 0, -1):
+    with tracing.span(tracing.LEVEL):
+      new = _batched_superstep(graph, program,
+                               live._replace(prop=prop, active=depth == d),
+                               plan).prop
+      prop = spmv_lib._tree_where(depth == d - 1, new, prop)
+  return prop

@@ -12,7 +12,8 @@
 // type; kernels/process_expr.py writes one from a program's traced
 // process_message, with its own message, edge, destination and result
 // types: float32 and the integer types compute in their type, float16 and
-// bfloat16 ones in float and round after each op, as eager CUDA does), or,
+// bfloat16 ones in float and round after each op, as eager CUDA does; a
+// double message only passes through, summed by the body in double), or,
 // for a process that mixes the lane axis of a K-lane message, kLanes,
 // kTeam, kVec, kLoad, kSlots, kOut, kDstLanes and
 //
@@ -108,6 +109,29 @@ template <>
 struct Num<uint8_t> : NarrowNum<uint8_t, 0, 255> {};
 
 #ifdef __CUDACC__
+// The sums of a float64 message (GAP's path counts): rounded op by op, as
+// Num<float>'s.
+template <>
+struct Num<double> {
+  __device__ static double add(double a, double b) { return __dadd_rn(a, b); }
+  __device__ static double sub(double a, double b) { return __dsub_rn(a, b); }
+  __device__ static double mul(double a, double b) { return __dmul_rn(a, b); }
+  __device__ static double min(double a, double b) {
+    return (a < b || a != a) ? a : b;
+  }
+  __device__ static double max(double a, double b) {
+    return (a > b || a != a) ? a : b;
+  }
+  __device__ static double zero() { return 0.0; }
+  __device__ static double one() { return 1.0; }
+  __device__ static double top() {
+    return __longlong_as_double(0x7ff0000000000000ll);
+  }
+  __device__ static double bottom() {
+    return __longlong_as_double(static_cast<long long>(0xfff0000000000000ull));
+  }
+};
+
 template <>
 struct Num<__half> {
   __device__ static __half add(__half a, __half b) { return __hadd(a, b); }

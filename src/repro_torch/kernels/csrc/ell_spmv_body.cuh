@@ -25,7 +25,8 @@
 // message, edge value, destination property and result each have their own
 // (an Operands; the shipped forms: float, half or int32 for all four; a
 // generated instance: float, half, bfloat16, int32, int16, int8 or uint8,
-// as its trace says).  The sum is kept in the result type, except that a
+// as its trace says, or double for a message passed through and summed:
+// the add reduce over GAP's float64 path counts, on both grids).  The sum is kept in the result type, except that a
 // half or bfloat16 result (a shipped half form's, a generated instance's)
 // is summed in float and rounded once into y, as the TPU kernel's jnp.sum
 // sums a tile of them in float32 and as the plain version sums a row; float
@@ -151,7 +152,8 @@ namespace {
 
 enum Reduce { kAdd = 0, kMin = 1, kMax = 2 };
 enum DType {
-  kF32 = 0, kF16 = 1, kI32 = 2, kBF16 = 3, kI8 = 4, kI16 = 5, kU8 = 6
+  kF32 = 0, kF16 = 1, kI32 = 2, kBF16 = 3, kI8 = 4, kI16 = 5, kU8 = 6,
+  kF64 = 7
 };
 
 // The types of one instance: message, edge value, destination property,
@@ -243,6 +245,7 @@ __device__ __forceinline__ int8_t ro(const int8_t* p) {
 __device__ __forceinline__ int16_t ro(const int16_t* p) {
   return static_cast<int16_t>(__ldg(reinterpret_cast<const short*>(p)));
 }
+__device__ __forceinline__ double ro(const double* p) { return __ldg(p); }
 
 // Streaming loads of the ELL arrays, which each launch reads once: loaded
 // evict-first, so they do not push the gathered messages out of L1.
@@ -264,6 +267,7 @@ __device__ __forceinline__ int8_t st(const int8_t* p) {
 __device__ __forceinline__ int16_t st(const int16_t* p) {
   return static_cast<int16_t>(__ldcs(reinterpret_cast<const short*>(p)));
 }
+__device__ __forceinline__ double st(const double* p) { return __ldcs(p); }
 
 // Four consecutive values from an address aligned to four of them:
 // STREAM for the ELL arrays, else the read-only path (message rows).
@@ -313,6 +317,14 @@ __device__ __forceinline__ void ld4(const int16_t* p, int16_t* v) {
   v[1] = static_cast<int16_t>(w.x >> 16);
   v[2] = static_cast<int16_t>(w.y & 0xffffu);
   v[3] = static_cast<int16_t>(w.y >> 16);
+}
+// Four doubles are two 16-byte loads (from an address aligned to 16 bytes).
+template <bool STREAM>
+__device__ __forceinline__ void ld4(const double* p, double* v) {
+  const double2* q = reinterpret_cast<const double2*>(p);
+  const double2 a = STREAM ? __ldcs(q) : __ldg(q);
+  const double2 b = STREAM ? __ldcs(q + 1) : __ldg(q + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 template <bool STREAM>
 __device__ __forceinline__ void ld4(const int8_t* p, int8_t* v) {

@@ -67,7 +67,7 @@ _OP_CODE = {op: i for i, op in enumerate(PROCESS_OPS)}
 _REDUCE_CODE = {"add": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.int32: 2,
                torch.bfloat16: 3, torch.int8: 4, torch.int16: 5,
-               torch.uint8: 6}
+               torch.uint8: 6, torch.float64: 7}
 # Launch flags, as the source's Flags enum.
 _MASK_IS_PREFIX, _VEC_SLOTS, _VEC_MSG, _VEC_ACTIVE = 1, 2, 4, 8
 _SHORT_ROWS = 16
@@ -466,7 +466,8 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     process: a program's ``process_message`` traced at the operands'
       dtypes and widths (:func:`repro_torch.kernels.process_expr.trace`);
       one of the two.  y has its result dtype and width K_out (Q for a
-      lanewise process).
+      lanewise process).  A float64 process (the pass-through ``m``) takes
+      the add reduce alone.
     reduce_kind: add | min | max.
     dprop: [n_pad, Kd] destination properties in packed-row order, Kd = 1
       or Q (a lane-mixing process: the Kd it was traced at): given for a
@@ -496,6 +497,8 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
     out_dtype = process.out_dtype
   reads_edge, reads_dst = _reads(process_op if process is None else process)
   _check(reduce_kind in _REDUCE_CODE, "reduce_kind {!r}", reduce_kind)
+  _check(msg.dtype != torch.float64 or reduce_kind == "add",
+         "float64 messages take the add reduce, not {!r}", reduce_kind)
   _check(cols.ndim == 2 and vals.shape == cols.shape
          and mask.shape == cols.shape, "cols, vals, mask must be [n_pad, W]")
   _check(msg.ndim == 2 and active.shape == (msg.shape[0],),

@@ -37,8 +37,9 @@ def spmv_ell_cuda(g: graphlib.EllGraph, msg: PyTree, active: torch.Tensor,
   (:func:`repro_torch.kernels.process_expr.for_program`): lanewise, or
   mixing the lanes of a ``[n, K]`` message (K up to 256), over float32,
   float16, bfloat16 and the integer types up to int32, mixed as torch
-  promotes them.  A process that reads the destination property takes it
-  shaped as the message is (``[n]``, or ``[n, Kd]`` with Kd = 1 or K), in
+  promotes them, or a float64 message passed through and summed (add).
+  A process that reads the destination property takes it shaped as the
+  message is (``[n]``, or ``[n, Kd]`` with Kd = 1 or K), in
   its own dtype, un-permuted into packed-row order as the reference's
   ``spmv_ell_pallas`` does.  Raises otherwise, naming the reason, as the
   reference asserts.  A lanewise process on a ``[n, Q]`` message runs as

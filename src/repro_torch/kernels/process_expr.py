@@ -25,7 +25,10 @@ dtype (``:138-145``), and ``kernels/ops.py`` hands it the program's own
 
 What the kernel takes, and so what a trace accepts: the dtypes the
 reference's kernel computes with x64 off (``KINDS``: float32, float16,
-bfloat16, int32, int16, int8, uint8), mixed as torch promotes them; the
+bfloat16, int32, int16, int8, uint8), mixed as torch promotes them, and a
+float64 message passed through unchanged (the process ``m`` itself, for
+the add reduce alone: GAP's betweenness centrality counts its shortest
+paths in double, ``algos/bc.py``); the
 elementwise ops ``add``, ``sub`` (and ``rsub``), ``mul``, ``div``, ``neg``,
 ``abs``, ``reciprocal``, ``minimum``, ``maximum``, ``clamp``, ``where``,
 the six comparisons, logical and bitwise and / or / xor / not on booleans,
@@ -40,8 +43,11 @@ tensors are constants.  Anything else is refused with a reason
 (:class:`Refused`): a trace that fails (data-dependent control flow), an
 op outside that list (another reduction or index across the lane axis
 among them), a captured tensor that is not 0-d (the reference's kernel
-refuses it too: "captures constants"), an int64 or float64 value (the
-reference computes neither), a bool result, a destination property of a
+refuses it too: "captures constants"), an int64 value, a float64 value
+anywhere but in that pass-through (an op that computes in float64, reads
+float64 edge values or properties, or casts to or from it: the reference
+computes in neither), a float64 message under a min or max reduce
+(:func:`for_program`), a bool result, a destination property of a
 width other than 1 or K, a value of another width.  A program whose
 ``process_reads_dst`` is False gets ``d = 0``, as the reference's kernel
 gets a zero ``dprop`` (``src/repro/kernels/ops.py:53``).
@@ -91,7 +97,7 @@ MAX_LANES = 256
 
 KINDS = {torch.float32: "f32", torch.float16: "f16", torch.bfloat16: "bf16",
          torch.int32: "i32", torch.int16: "i16", torch.int8: "i8",
-         torch.uint8: "u8"}
+         torch.uint8: "u8", torch.float64: "f64"}
 # The dtypes the shipped library is compiled for (all operands alike).
 SHIPPED_DTYPES = (torch.float32, torch.float16, torch.int32)
 _TORCH = {kind: dtype for dtype, kind in KINDS.items()} | {"bool": torch.bool}
@@ -102,7 +108,8 @@ _BITS = {"f32": torch.int32, "f16": torch.int16, "bf16": torch.int16,
 _WIDTH = {"f32": 32, "f16": 16, "bf16": 16, "i32": 32, "i16": 16, "i8": 8,
           "u8": 8}
 CTYPES = {"f32": "float", "f16": "__half", "bf16": "__nv_bfloat16",
-          "i32": "int", "i16": "int16_t", "i8": "int8_t", "u8": "uint8_t"}
+          "i32": "int", "i16": "int16_t", "i8": "int8_t", "u8": "uint8_t",
+          "f64": "double"}
 
 _BINARY = {"add": "add", "sub": "sub", "mul": "mul", "div": "div",
            "minimum": "min", "maximum": "max"}
@@ -160,7 +167,8 @@ class _Refuse(Exception):
 def _unsupported(dtype, what: str) -> _Refuse:
   return _Refuse(f"{what} {dtype}; the kernel computes in float32, float16, "
                  "bfloat16, int32, int16, int8 and uint8, as the reference "
-                 "does with x64 off (no int64 or float64)")
+                 "does with x64 off (no int64 or float64; a float64 message "
+                 "only passes through unchanged)")
 
 
 def _const_ref(c: _Const, kind: str) -> Ref:
@@ -434,9 +442,11 @@ def _op_name(target) -> Tuple[str, str]:
 
 
 def _kind_of(dtype: torch.dtype, name: str) -> str:
+  """The kind an op computes its result in: no op computes in float64,
+  which a trace takes only as a message returned unchanged."""
   if dtype == torch.bool:
     return "bool"
-  if dtype not in KINDS:
+  if KINDS.get(dtype) in (None, "f64"):
     raise _unsupported(dtype, f"computes aten.{name} in")
   return KINDS[dtype]
 
@@ -751,7 +761,9 @@ def _trace(fn, dtype, edge_dtype, dst_dtype, lane, k, kd, reads_dst,
     out, val = _read_graph(gm, b, reads_dst, dtype)
     if val is None:
       raise _Refuse("returns a value with no traced shape")
-    out_kind = _kind_of(val.dtype, "its result")
+    passed = not b.nodes and out == ("m",)  # the message, unchanged
+    out_kind = (b.kind(out) if passed
+                else _kind_of(val.dtype, "its result"))
     if out_kind == "bool":
       raise _Refuse("returns torch.bool; the kernel reduces values, as the "
                     "reference's does (it refuses a bool result)")
@@ -776,6 +788,9 @@ def _trace(fn, dtype, edge_dtype, dst_dtype, lane, k, kd, reads_dst,
     for role in ("e", "d"):
       if expr._reads(role):
         b.kind((role,))  # refuses a dtype the kernel does not take
+    if not passed and "f64" in [b.kind((r,)) for r in ("m", "e", "d")
+                                if expr._reads(r)]:
+      raise _unsupported(torch.float64, "computes with values of")
   except _Refuse as exc:
     return Refused(str(exc))
   expr = dataclasses.replace(
@@ -818,6 +833,10 @@ def for_program(program, msg: torch.Tensor, vals: torch.Tensor,
     return Refused(f"its reduce_kind is {program.reduce_kind!r}: the kernel "
                    "reduces by add, min or max (a generic reduce runs on the "
                    "torch backends)")
+  if msg.dtype == torch.float64 and program.reduce_kind != "add":
+    return Refused(f"has torch.float64 messages under the "
+                   f"{program.reduce_kind} reduce: the kernel sums float64 "
+                   "messages (the add reduce) and reduces no other way")
   reads_dst = program.process_reads_dst
   dst_dtype = (dprop.dtype if reads_dst and dprop is not None
                else msg.dtype)
@@ -854,6 +873,8 @@ _STORE = {"f16": "__float2half_rn", "bf16": "__float2bfloat16_rn",
 
 def _compute(kind: str) -> str:
   """The C type a value of ``kind`` is kept in."""
+  if kind == "f64":
+    return "double"
   return "bool" if kind == "bool" else ("float" if kind in _FLOAT else "int")
 
 

@@ -42,9 +42,14 @@ ROUND = "graphmat.service.round"
 ADMIT = "graphmat.service.admit"
 ROUND_READ = "graphmat.service.round_read"
 RETIRE = "graphmat.service.retire"
-# engine: one superstep (single-query or batched), the host's read of it.
+# engine: one superstep (single-query or batched), the host's read of it,
+# one level of a level sweep (run_level_sweep).
 SUPERSTEP = "graphmat.engine.superstep"
 HOST_READ = "graphmat.engine.host_read"
+LEVEL = "graphmat.engine.level"
+# algos: betweenness centrality's two passes (algos/bc.py).
+BC_FORWARD = "graphmat.algos.bc.forward"
+BC_BACKWARD = "graphmat.algos.bc.backward"
 # spmv: the backend that executes a call (SPMV + its registered name, as
 # Backend.span), the spill merge.
 SPMV = "graphmat.spmv."

@@ -18,7 +18,9 @@ hold 8).  Tolerances: min and max
 bitwise (no arithmetic is reordered); float32 add at rtol 1e-5 (the PyTorch
 path adds with atomics in no fixed order, the kernel in its tile order);
 float16 and bfloat16 sums against the float64 sum of the same terms at
-their own rtol (1e-2, 2e-2: both paths sum in float and round once).
+their own rtol (1e-2, 2e-2: both paths sum in float and round once);
+float64 sums of whole numbers below 2**40 (GAP's path counts, the float64
+pass-through instance) bitwise, since they are exact in any order.
 """
 
 import numpy as np
@@ -319,3 +321,91 @@ def test_unsorted_graph_keeps_the_torch_path(card):
   before = K.torch_path["unsorted"]
   S.spmv_coo(g, msg, active, msg, program("msg_plus_edge"))
   assert K.torch_path["unsorted"] == before + 1
+
+
+def counts(device, shape, seed=5):
+  """float64 whole numbers below 2**40 (path counts): sums of a few
+  thousand of them are exact in any order."""
+  rng = np.random.default_rng(seed)
+  return torch.from_numpy(rng.integers(0, 2**40, shape).astype(
+      np.float64)).to(device)
+
+
+def f64_key(q, call):
+  return "coo/" + E.config_key(q, torch.float64, "add", call.process.name)
+
+
+@pytest.mark.parametrize("q", [1, 4, 8])
+@pytest.mark.parametrize("frac", [1.0, 0.5])
+def test_float64_sum_is_exact(card, q, frac):
+  """The float64 pass-through by add on the hub graph, padded and holed:
+  bitwise equal to the PyTorch path, under its own launch key."""
+  g = runs_graph(card, pad=300, masked=0.1)
+  msg = counts(card, (N,) if q == 1 else (N, q))
+  _, active = inputs(card, (N,), frac=frac)
+  prog = program("msg", reduce_kind="add")
+  call = K.route(g, msg, active, msg, prog)
+  assert call is not None and call.process.shipped is None
+  before = K.launches.by_config.get(f64_key(q, call), 0)
+  assert_same(*both(g, msg, active, msg, prog))
+  assert K.launches.by_config[f64_key(q, call)] == before + 1
+
+
+@pytest.mark.parametrize("q", [1, 4, 8])
+def test_float64_merge_into_ell_result(card, q):
+  """The spill merge folds float64 runs into another float64 result in
+  place, exactly as ``merge_spill``'s PyTorch path does."""
+  g = runs_graph(card, masked=0.1)
+  msg = counts(card, (N,) if q == 1 else (N, q))
+  _, active = inputs(card, (N,), frac=0.5)
+  prog = program("msg", reduce_kind="add")
+  recv0 = torch.from_numpy(np.random.default_rng(8).uniform(size=N) < 0.5
+                           ).to(card)
+  mask = recv0.reshape((-1,) + (1,) * (msg.ndim - 1))
+  y0 = torch.where(mask, counts(card, msg.shape, seed=9),
+                   torch.zeros_like(msg))
+  call = K.route(g, msg, active, msg, prog)
+  assert call is not None
+  before = K.launches.by_config.get(f64_key(q, call), 0)
+  y, recv = K.merge(call, g, active, y0.clone(), recv0.clone())
+  assert K.launches.by_config[f64_key(q, call)] == before + 1
+  y_s, recv_s = S._spmv_coo_torch(g, msg, active, msg, prog)
+  assert torch.equal(recv, recv0 | recv_s)
+  assert torch.equal(y, torch.where(recv_s.reshape(mask.shape), y0 + y_s,
+                                    y0))
+
+
+@pytest.mark.parametrize("q", [1, 4])
+def test_cuda_ell_float64_spill_runs_both_kernels(card, q):
+  """``cuda_ell`` over float64 path counts on a graph whose hub spills: the
+  ELL kernel's and the COO kernel's float64 instances once each a call,
+  and the result equal, exactly, to every edge's message summed with
+  ``index_add_`` (repeated edges count each time, as the add reduce counts
+  them)."""
+  from repro_torch.core.backends import Plan
+  rng = np.random.default_rng(3)
+  n = 2000
+  src = np.concatenate([np.arange(1, n), rng.integers(0, n, 6000)])
+  dst = np.concatenate([np.zeros(n - 1, np.int64), rng.integers(1, n, 6000)])
+  g = G.build_ell(src, dst, None, n=n, width=8, device=card)
+  assert g.spill is not None
+  msg = counts(card, (n,) if q == 1 else (n, q))
+  active = torch.from_numpy(rng.uniform(size=n) < 0.3).to(card)
+  prog = program("msg", reduce_kind="add")
+  coo0, ell0 = dict(K.launches.by_config), dict(E.launches.by_config)
+  y, recv = S.spmv(g, msg, active, msg, prog, backend=Plan("cuda_ell"))
+  new_coo = {k: v - coo0.get(k, 0) for k, v in K.launches.by_config.items()
+             if v != coo0.get(k, 0)}
+  new_ell = {k: v - ell0.get(k, 0) for k, v in E.launches.by_config.items()
+             if v != ell0.get(k, 0)}
+  assert [k.split("/")[1:4] for k in new_coo] == [
+      ["q1" if q == 1 else "qtiled", "float64", "add"]]
+  assert [k.split("/")[:3] for k in new_ell] == [
+      ["q1" if q == 1 else "qtiled", "float64", "add"]]
+  assert list(new_coo.values()) == list(new_ell.values()) == [1]
+  s_t, d_t = (torch.from_numpy(x).to(card) for x in (src, dst))
+  live = active[s_t]
+  m2 = msg if q > 1 else msg[:, None]
+  want = torch.zeros_like(m2).index_add_(0, d_t[live], m2[s_t[live]])
+  assert torch.equal(y, want if q > 1 else want[:, 0])
+  assert torch.equal(recv, torch.bincount(d_t[live], minlength=n) > 0)

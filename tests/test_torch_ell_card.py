@@ -24,6 +24,12 @@ Every test is marked ``cuda`` and skips without a card.
   ``chip_smoke.py`` states them: rtol 1e-5 for float32 sums, 1e-2 for
   float16, 2e-2 for bfloat16 (with atol rtol times the largest magnitude),
   bitwise for min and max without a float lane sum.
+* Float64 sums (GAP's path counts, ``algos/bc.py``): the pass-through
+  ``m`` over float64 messages by add, at Q = 1 (the single-query grid:
+  the cooperative launch, and the plain launch of a table of short rows),
+  4 and 8 (the query-tiled grid), every source active and a part: whole
+  numbers below 2**40 bitwise (their sums are exact in any order), uniform
+  values at rtol 1e-12.
 """
 
 from typing import Dict
@@ -32,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.graph import ell_extent
 from repro_torch.kernels import _build
 from repro_torch.kernels import ell_spmv as kmod
 from repro_torch.kernels import process_expr as pe
@@ -248,3 +255,55 @@ def test_lane_grid_on_the_card(lane_libraries, name, k, dt):
     assert not nan or bool(yr.isnan().any())
     close(y, yr, bitwise=red != "add" and not lane_sums(expr),
           what=f"{name} K={k} {dt} nan={nan}")
+
+
+# --- Float64 sums ------------------------------------------------------------
+
+F64_CASES = [(q, frac, kind, rows) for q in (1, 4, 8) for frac in (1.0, 0.8)
+             for kind in ("counts", "uniform")
+             for rows in (("mixed", "short") if q == 1 else ("mixed",))]
+F64_IDS = [f"Q{q}-{frac}-{kind}-{rows}" for q, frac, kind, rows in F64_CASES]
+
+
+def f64_block(q: int, frac: float, kind: str, rows: str, seed: int = 3):
+  """The lane grid's test block (or, for ``short``, its rows cut to at most
+  4 slots, so that every row is in the one-lane class) with float64
+  messages [LANE_SRC, Q]: whole numbers below 2**40, or uniform in [0, 1)."""
+  block = lane_block(3, seed=seed)
+  if rows == "short":
+    block["mask"] = block["mask"] & (np.arange(LANE_WIDTH)[None] < 4)
+  rng = np.random.default_rng(seed)
+  block["active"] = rng.uniform(size=LANE_SRC) < frac
+  block["msg"] = (rng.integers(0, 2**40, (LANE_SRC, q)).astype(np.float64)
+                  if kind == "counts" else rng.uniform(size=(LANE_SRC, q)))
+  return block
+
+
+@pytest.mark.parametrize("q,frac,kind,rows", F64_CASES, ids=F64_IDS)
+def test_float64_sum_on_the_card(q, frac, kind, rows):
+  """The float64 pass-through instance by add on both grids, against the
+  plain version (``kernels/ref.py``), launched under its own key."""
+  dev = _card()
+  block = f64_block(q, frac, kind, rows)
+  t = {k: torch.from_numpy(v).to(dev) for k, v in block.items()}
+  expr = pe.trace(lambda m, e, d: m, torch.float64, lane=q > 1,
+                  k=q if q > 1 else None, reads_dst=False)
+  assert isinstance(expr, pe.ProcessExpr) and expr.shipped is None, expr
+  kmod.launches.reset()
+  y, recv = kmod.ell_spmv(t["cols"], t["vals"], t["mask"], t["msg"],
+                          t["active"], process=expr, reduce_kind="add")
+  torch.cuda.synchronize()
+  assert kmod.launches.by_config == {
+      kmod.config_key(q, torch.float64, "add", expr.name): 1}
+  ends, _ = ell_extent(t["mask"])
+  assert (rows == "short") == kmod.row_segments(
+      torch.from_numpy(ends).to(dev)).short_rows
+  yr, rr = ell_spmv_ref(*(x.cpu() for x in (
+      t["cols"], t["vals"], t["mask"], t["msg"], t["active"])),
+      torch.zeros((block["mask"].shape[0], 1), dtype=torch.float64),
+      process=expr.plain, reduce_kind="add")
+  assert y.dtype == torch.float64 and torch.equal(recv.cpu(), rr)
+  if kind == "counts":
+    assert torch.equal(y.cpu(), yr)
+  else:
+    torch.testing.assert_close(y.cpu(), yr, rtol=1e-12, atol=1e-12)

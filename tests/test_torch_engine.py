@@ -173,3 +173,137 @@ def test_core_exports_the_references_public_names():
   assert tcore.run_fixed_iters is teng.run_fixed_iters
   assert tcore.EngineState is teng.EngineState
   assert tcore.dense_adjacency is TG.dense_adjacency
+
+
+# --- The level sweep (Brandes' backward pass, repro_torch.algos.bc) ---------
+
+# A tree (each vertex's parent), made undirected for the sweep.
+TREE = [-1, 0, 0, 1, 1, 2, 3, 3, 5, 5, 5, 8, 11, 11]
+
+
+def _tree_graph(plan):
+  n = len(TREE)
+  pairs = [(v, p) for v, p in enumerate(TREE) if p >= 0]
+  src = np.array([a for a, b in pairs] + [b for a, b in pairs], np.int32)
+  dst = np.array([b for a, b in pairs] + [a for a, b in pairs], np.int32)
+  if plan == "coo":
+    return n, TG.build_coo(src, dst, None, n=n, device="cpu")
+  return n, TG.build_ell(src, dst, None, n=n, width=2, device="cpu")
+
+
+def _depths(g, n, roots):
+  """int32 [n, Q] BFS levels from ``roots`` (-1 unreached; none here)."""
+  d = tmulti.multi_bfs(g, roots, n, backend=tbe.Plan("coo"))
+  return torch.where(d == tmulti.UNREACHED, -1, d)
+
+
+def _below_program():
+  """A vertex's count of the vertices below it: a level sends each
+  vertex's count plus one, summed into the level above."""
+  from repro_torch.core.vertex_program import GraphProgram, lanewise_activate
+  return GraphProgram(process_op="msg", reduce_kind="add",
+                      send_message=lambda p: p + 1,
+                      apply=lambda red, old: red,
+                      activate=lanewise_activate, needs_recv=False,
+                      inert_message=0, lanewise=True)
+
+
+def _below(n, roots):
+  """The same counts in Python: a vertex's descendants away from a root."""
+  adj = {v: set() for v in range(n)}
+  for v, p in enumerate(TREE):
+    if p >= 0:
+      adj[v].add(p)
+      adj[p].add(v)
+  out = np.zeros((n, len(roots)), np.int32)
+  for lane, r in enumerate(roots):
+    def count(v, up):
+      return sum(1 + count(w, v) for w in adj[v] if w != up)
+    for v in range(n):
+      # v's parent away from r: the neighbour on v's path to r.
+      path, seen, todo = {r: None}, {r}, [r]
+      while todo:
+        u = todo.pop()
+        for w in adj[u]:
+          if w not in seen:
+            seen.add(w)
+            path[w] = u
+            todo.append(w)
+      out[v, lane] = count(v, path[v])
+  return out
+
+
+@pytest.mark.parametrize("plan", ["coo", "ell", "cuda_ell"])
+def test_level_sweep_sums_each_level_into_the_one_above(plan):
+  """Two lanes rooted at different vertices sweep their own levels, each
+  level's sum landing on the level above: every vertex ends with the count
+  of the vertices below it from that lane's root, and each lane equals its
+  sweep alone."""
+  n, g = _tree_graph(plan)
+  roots = [0, 11]
+  depth = _depths(g, n, roots)
+  deepest = int(depth.max())
+  zero = torch.zeros((n, 2), dtype=torch.int32)
+  got = teng.run_level_sweep(g, _below_program(), zero, depth, deepest,
+                             backend=tbe.Plan(plan))
+  np.testing.assert_array_equal(got.numpy(), _below(n, roots))
+  for lane in range(2):
+    alone = teng.run_level_sweep(
+        g, _below_program(), zero[:, lane:lane + 1],
+        depth[:, lane:lane + 1].contiguous(), int(depth[:, lane].max()),
+        backend=tbe.Plan(plan))
+    assert torch.equal(alone[:, 0], got[:, lane])
+
+
+def test_level_sweep_frontiers_are_the_levels(monkeypatch):
+  """One batched superstep a level, deepest first, whose frontier is lane
+  by lane ``depth == d`` with every lane live, and whose result is kept
+  only one level up."""
+  n, g = _tree_graph("coo")
+  depth = _depths(g, n, [0, 11])
+  deepest = int(depth.max())
+  seen = []
+  real = teng._batched_superstep
+
+  def spy(graph, program, state, plan):
+    seen.append((state.active.clone(), state.done.clone()))
+    out = real(graph, program, state, plan)
+    return out._replace(prop=torch.full_like(out.prop, 100 + len(seen)))
+  monkeypatch.setattr(teng, "_batched_superstep", spy)
+  got = teng.run_level_sweep(g, _below_program(),
+                             torch.zeros((n, 2), dtype=torch.int32), depth,
+                             deepest, backend=tbe.Plan("coo"))
+  assert len(seen) == deepest
+  for k, (active, done) in enumerate(seen):
+    assert torch.equal(active, depth == deepest - k)
+    assert not bool(done.any())
+  want = torch.where(depth < deepest, 100 + deepest - depth, 0)
+  assert torch.equal(got, want.to(torch.int32))
+
+
+def test_level_sweep_of_no_level_runs_nothing(monkeypatch):
+  n, g = _tree_graph("coo")
+  depth = _depths(g, n, [0])
+  monkeypatch.setattr(teng, "_batched_superstep", None)
+  prop = torch.arange(n, dtype=torch.int32)[:, None]
+  assert teng.run_level_sweep(g, _below_program(), prop, depth, 0,
+                              backend=tbe.Plan("coo")) is prop
+
+
+def test_level_sweep_reads_nothing_back(monkeypatch):
+  """No host read inside the sweep: a tensor's value read on the host
+  raises there."""
+  n, g = _tree_graph("coo")
+  depth = _depths(g, n, [0, 11])
+  deepest = int(depth.max())
+
+  def refuse(*args, **kwargs):
+    raise AssertionError("a host read inside the level sweep")
+  for name in ("item", "tolist", "__bool__", "__int__", "__float__",
+               "numpy", "cpu"):
+    monkeypatch.setattr(torch.Tensor, name, refuse)
+  got = teng.run_level_sweep(g, _below_program(),
+                             torch.zeros((n, 2), dtype=torch.int32), depth,
+                             deepest, backend=tbe.Plan("coo"))
+  monkeypatch.undo()
+  np.testing.assert_array_equal(got.numpy(), _below(n, [0, 11]))

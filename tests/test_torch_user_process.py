@@ -7,13 +7,14 @@ Here, on the CPU:
 
 * the expression, evaluated in torch, equals the callable bitwise for
   float32, float16 and int32, scalar and ``[n, Q]``;
-* the refusals, each with its reason (int64 and float64 values, a bool
-  result, a destination property of a width other than 1 or K, a lane
-  slice of another width, control flow, captured tensors, unknown ops, a
-  generic reduce): structural auto resolves them to ``ell`` and an
-  explicit ``Plan("cuda_ell")`` raises; the processes refused before the
-  kernel took lane mixing, ``K_out = 1`` and mixed dtypes, now taken and
-  run;
+* the refusals, each with its reason (int64 values, float64 values other
+  than a message passed through unchanged, a float64 message under min or
+  max, a bool result, a destination property of a width other than 1 or
+  K, a lane slice of another width, control flow, captured tensors,
+  unknown ops, a generic reduce): structural auto resolves them to ``ell``
+  and an explicit ``Plan("cuda_ell")`` raises; the processes refused
+  before the kernel took lane mixing, ``K_out = 1``, mixed dtypes and the
+  float64 pass-through, now taken and run;
 * the five shipped forms' reference lambdas map onto their forms, and
   ``e + m`` does not;
 * parity with the reference: the same numpy inputs through the reference's
@@ -66,7 +67,7 @@ CSRC = (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 # Per-lane processes over the ops the kernel takes (name -> callable, the
 # dtypes it is written for).
-F, H, I = torch.float32, torch.float16, torch.int32
+F, H, I, D = torch.float32, torch.float16, torch.int32, torch.float64
 EXPRS = {
     "widest": (lambda m, e, d: torch.minimum(m, e), (F, H, I)),
     "where_gt": (lambda m, e, d: torch.where(e > 1, m, m + e), (F, H, I)),
@@ -177,6 +178,15 @@ REFUSALS = {  # name -> (callable, message dtype, lane, reason fragment
     "unknown_op": (lambda m, e, d: m ** 2, F, False, "aten.pow"),
     "two_leaves": (lambda m, e, d: (m, e), F, False, "not one tensor"),
     "alpha": (lambda m, e, d: torch.add(m, e, alpha=2), F, False, "alpha=2"),
+    # float64 passes through unchanged and nothing computes in it.
+    "f64_arith": (lambda m, e, d: m * 2, D, False,
+                  "computes aten.mul in torch.float64"),
+    "f64_lane_sum": (lambda m, e, d: m.sum(-1, keepdim=True), D, True,
+                     "computes aten.sum in torch.float64"),
+    "f64_cast": (lambda m, e, d: m.float(), D, False,
+                 "computes with values of torch.float64"),
+    "f64_edge": (lambda m, e, d: m + e, D, False,
+                 "computes aten.add in torch.float64"),
 }
 CAPTURED = torch.tensor([0.5])
 
@@ -199,6 +209,8 @@ FORMERLY_REFUSED = {
     "int_float_const": (lambda m, e, d: m * 0.5, I, False, F, None),
     "int_float_compare": (lambda m, e, d: torch.where(m < 2.5, m, e), I,
                           False, I, None),
+    # The float64 pass-through (GAP's path counts, algos/bc.py).
+    "f64_pass_through": (lambda m, e, d: m, D, False, D, None),
 }
 
 
@@ -227,8 +239,6 @@ def test_mixed_input_dtypes_refused():
   # An edge value the process never reads may have any dtype.
   assert isinstance(pe.trace(lambda m, e, d: m * 2, F, lane=False,
                              edge_dtype=torch.int64), pe.ProcessExpr)
-  assert isinstance(pe.trace(lambda m, e, d: m, torch.float64, lane=False),
-                    pe.Refused)
 
 
 @pytest.fixture(scope="module")
@@ -275,6 +285,34 @@ def test_refused_programs_plan_onto_ell_and_raise_on_cuda_ell(graphs, name):
   with pytest.raises(ValueError, match=reason):
     tspmv.spmv(tg, msg, act, msg, prog, backend=tbe.Plan("cuda_ell"))
   assert not tplanner._kernel_shape_ok(prog, max(q, 1))
+
+
+def test_float64_messages_take_the_add_reduce_alone(graphs):
+  """A float64 message passed through unchanged (``process_op="msg"``:
+  GAP's path counts) is taken for the add reduce: structural auto plans
+  ``cuda_ell``, whose path (its plain version here) equals ``Plan("ell")``
+  in float64.  Under min or max it is refused by reason: auto resolves to
+  ``ell``, ``Plan("cuda_ell")`` raises, and so does the kernel's wrapper."""
+  n, _, tg = graphs
+  msg = torch.rand((n, 4), dtype=torch.float64) * 2**40
+  act = torch.rand(n) < 0.7
+  add = GraphProgram(process_op="msg", reduce_kind="add")
+  assert tbe.resolve(tbe.AUTO_PLAN, tg, msg, msg, add).name == "cuda_ell"
+  got, got_r = tspmv.spmv(tg, msg, act, msg, add,
+                          backend=tbe.Plan("cuda_ell"))
+  want, want_r = tspmv.spmv(tg, msg, act, msg, add, backend=tbe.Plan("ell"))
+  assert got.dtype == torch.float64 and torch.equal(got_r, want_r)
+  torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+  for red in ("min", "max"):
+    prog = GraphProgram(process_op="msg", reduce_kind=red)
+    assert tbe.resolve(tbe.AUTO_PLAN, tg, msg, msg, prog).name == "ell"
+    with pytest.raises(ValueError, match=f"float64 messages under the {red}"):
+      tspmv.spmv(tg, msg, act, msg, prog, backend=tbe.Plan("cuda_ell"))
+  expr = pe.for_program(add, msg, tg.vals, None)
+  assert isinstance(expr, pe.ProcessExpr) and expr.name.startswith("traced_")
+  with pytest.raises(ValueError, match="float64 messages take the add"):
+    kmod.ell_spmv(tg.cols, tg.vals, tg.mask, msg, act, process=expr,
+                  reduce_kind="min")
 
 
 # The programs the refusals above held before the kernel took lane mixing

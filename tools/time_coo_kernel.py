@@ -7,8 +7,11 @@ benchmark cells' own inputs, on the card.
 The inputs are made by ``graphbench``'s generators from ``--seed``:
 Graph500 scale 20 built as the graph cells build it (``GraphPort``), whose
 hub spill is the COO graph of the SSSP rows (Q = 1 with every and 10% of
-sources active, Q = 8) and of PageRank's add (beside ``torch.sparse.mm``),
-and collaborative filtering's user-to-item graph at the Netflix Prize's
+sources active, Q = 8), of PageRank's add (beside ``torch.sparse.mm``) and
+of betweenness centrality's sums at Q = 4 (``algos/bc.py``: the forward
+pass's float64 path counts, where the package takes them, and the
+backward pass's float32 shares; every source and 10% active), and
+collaborative filtering's user-to-item graph at the Netflix Prize's
 shape (phase V, K = 16).  Each row is :func:`chip_smoke.time_coo`'s: held
 against the PyTorch path on the same tensors, timed, with its byte bound
 and gather floor.  Prints one JSON line with the card's name and power
@@ -67,10 +70,24 @@ def main(argv=None) -> int:
       torch.ones(int(real.sum()), device=dev), (n, n)).coalesce(
       ).to_sparse_csr()
   col = m1[:, None].contiguous()
+  add = GraphProgram(process_op="msg", reduce_kind="add")
   row("coo_spmv[pagerank,f32,add,Q=1,all,graph500-s20 spill]", g, m1, every,
-      m1, GraphProgram(process_op="msg", reduce_kind="add"),
-      library=lambda: torch.sparse.mm(csr, col))
-  del g, csr, col, m1, m8
+      m1, add, library=lambda: torch.sparse.mm(csr, col))
+  counts = torch.randint(0, 2**40, (n, 4), generator=rng, device=dev,
+                         dtype=torch.int64).double()
+  shares = torch.rand((n, 4), generator=rng, device=dev)
+  for what, m in (("bc_sigma,f64", counts), ("bc_delta,f32", shares)):
+    if K.decide(g, m, every, m, add) == "process":
+      continue  # a package that does not take float64
+    mat = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                  csr.values().to(m.dtype), csr.shape)
+    for frontier, act in (("all", every), ("10%", tenth)):
+      row(f"coo_spmv[{what},add,Q=4,{frontier},graph500-s20 spill]", g, m,
+          act, m, add, **({"library": lambda: torch.sparse.mm(mat, m)}
+                          if frontier == "all" else
+                          {"library_null": "no single PyTorch call sums "
+                           "the active sources' messages alone"}))
+  del g, csr, col, m1, m8, counts, shares
   torch.cuda.empty_cache()
 
   config = manifest.cell("netflix-cf.sweeps")["config"]

@@ -46,7 +46,11 @@ and, with every source active, a K = 16 message and property through the
 lane dot score ``(m * d).sum(-1)`` (max) and collaborative filtering's
 ``(e - (m * d).sum(-1, keepdim=True)) * m`` (add); and PageRank's
 ``msg`` form over float16 messages (add) at Q = 1 and 8, whose sums the
-shipped half instances keep in float.  ``--only`` keeps the rows whose
+shipped half instances keep in float; and betweenness centrality's two
+sums at Q = 4 (``algos/bc.py``), every source and 10% active: the
+forward pass's float64 path counts through the pass-through ``m`` (a
+generated instance, where the package takes float64) and the backward
+pass's float32 shares through the shipped ``msg``.  ``--only`` keeps the rows whose
 names start with one of its prefixes.  Each at every
 ``--block-rows`` given (default: the wrapper's own).  Each row carries its byte bound (the bytes
 the work needs over 3.35 TB/s, as ``chip_smoke.py`` counts them), and each
@@ -81,6 +85,7 @@ TRACED = {
     "traced:dot": (lambda m, e, d: (m * d).sum(-1), None, 16, True),
     "traced:cf": (lambda m, e, d: (e - (m * d).sum(-1, keepdim=True)) * m,
                   None, 16, True),
+    "traced:m": (lambda m, e, d: m, None, None, False),
 }
 # name -> process_op, reduce, dtype name, Q, Kd (None: no dprop),
 # frontiers ("recorded": the calls of the graph's own run of that algorithm)
@@ -113,6 +118,13 @@ ROWS = {
                                ("all",)),
     "cf_one_leaf,f32,add,K=16": ("traced:cf", "add", "float32", 16, 16,
                                  ("all",)),
+    # Betweenness centrality's sums at Q = 4: the forward pass's float64
+    # path counts (where the package takes them) and the backward pass's
+    # float32 shares.
+    "bc_sigma,f64,add,Q=4": ("traced:m", "add", "float64", 4, None,
+                             ("all", "10%")),
+    "bc_delta,f32,add,Q=4": ("msg", "add", "float32", 4, None,
+                             ("all", "10%")),
 }
 
 
@@ -366,9 +378,12 @@ def measure(args) -> dict:
         if half_g is None:
           half_g = half_edges(g)
         graph = half_g
+      lane = k is not None or q > 1
       expr = process_expr.trace(
-          fn, dtype, lane=k is not None, edge_dtype=graph.vals.dtype,
-          kd=kd or 1, reads_dst=reads_dst, **({} if k is None else {"k": k}))
+          fn, dtype, lane=lane, edge_dtype=graph.vals.dtype,
+          kd=kd or 1, reads_dst=reads_dst, **({"k": k or q} if lane else {}))
+      if isinstance(expr, process_expr.Refused):
+        continue  # a package that does not take this process
       form = {"process": expr}
       edge = expr.reads_edge
       if k is not None:
